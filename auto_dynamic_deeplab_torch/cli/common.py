@@ -1,0 +1,33 @@
+"""Shared CLI plumbing (cli/common.py of the JAX package)."""
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+
+from ..nas.genotypes import AUTODEEPLAB_GENOTYPE, NETWORK_ARCH
+
+
+def add_common_args(p: argparse.ArgumentParser):
+    p.add_argument("--dataset", default="synthetic",
+                   choices=["cityscapes", "cityscapes_edm", "pascal", "synthetic"])
+    p.add_argument("--batch-size", type=int, default=4)
+    p.add_argument("--test-batch-size", type=int, default=1)
+    p.add_argument("--workers", type=int, default=4)
+    p.add_argument("--F", type=int, default=20)
+    p.add_argument("--B", type=int, default=5)
+    p.add_argument("--C", type=int, default=2, choices=[2, 3, 4])
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--synthetic-crop", type=int, nargs=2, default=(65, 65))
+    p.add_argument("--synthetic-length", type=int, default=64)
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="run on the GPU (default; raises without one) or the CPU")
+    return p
+
+
+def resolve_arch(args, genotype_path: str | None = None):
+    """The hardcoded decoded architecture for --C (train.py:75-100) and the
+    cell genotype (the shipped autodeeplab genotype by default)."""
+    cfg = NETWORK_ARCH[args.C]
+    genotype = np.load(genotype_path) if genotype_path else AUTODEEPLAB_GENOTYPE
+    return cfg["path"], cfg["C_index"], cfg["low_level_layer"], genotype

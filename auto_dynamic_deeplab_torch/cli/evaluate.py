@@ -1,0 +1,77 @@
+"""Eval driver (eval.py parity): static per-exit mIoU, or --dynamic
+early-exit inference with mIoU / latency / fps / exit rate / average
+confidence. Weights come from --seed (checkpoint loading is ROADMAP Queue 1
+item 9).
+
+    python -m auto_dynamic_deeplab_torch.cli.evaluate --dynamic \\
+        --confidence entropy --threshold 0.5 --synthetic-crop 1025 2049
+"""
+from __future__ import annotations
+
+import argparse
+import json
+
+import torch
+
+from ..data import make_data_loader, peek_batch
+from ..models import ADD, EDM, BaselineModel
+from ..runtime import resolve_device
+from ..train.evaluator import Evaluation
+from ..utils.initialize import init_params
+from .common import add_common_args, resolve_arch
+
+
+def build_parser():
+    p = argparse.ArgumentParser(description="Evaluate decoded network")
+    add_common_args(p)
+    p.add_argument("--network", default="ADD", choices=["ADD", "baseline"])
+    p.add_argument("--dynamic", action="store_true")
+    p.add_argument("--confidence", default="edm", choices=["edm", "entropy", "max"])
+    p.add_argument("--threshold", type=float, default=0.0)
+    p.add_argument("--genotype", default=None)
+    p.add_argument(
+        "--cell-exec", default="xla", choices=["xla"],
+        help="cell execution: plain ops (the fused cell kernels of the JAX "
+        "package's 'flat' mode are ROADMAP slice 2)",
+    )
+    return p
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    device = resolve_device(args.device)
+    path, C_index, low_level_layer, genotype = resolve_arch(args, args.genotype)
+
+    _, val_loader, nclass = make_data_loader(
+        args.dataset, args.batch_size, args.test_batch_size,
+        num_workers=args.workers, seed=args.seed,
+        synthetic_length=args.synthetic_length,
+        synthetic_crop=tuple(args.synthetic_crop),
+    )
+
+    model_cls = ADD if args.network == "ADD" else BaselineModel
+    model = model_cls(path, C_index, genotype, nclass, F=args.F, B=args.B,
+                      low_level_layer=low_level_layer)
+    init_params(model, torch.Generator().manual_seed(args.seed))
+
+    edm = None
+    if args.confidence == "edm" and args.dynamic:
+        edm = EDM(model.feature_channels(model.exit_layers[0]))
+        init_params(edm, torch.Generator().manual_seed(0))
+
+    evaluation = Evaluation(model, nclass, edm=edm, device=device)
+    if args.dynamic:
+        sample = peek_batch(val_loader)["image"][:1]
+        stats = evaluation.dynamic_inference(
+            val_loader, threshold=args.threshold, confidence=args.confidence,
+            warmup_shape=sample.shape,
+        )
+    else:
+        stats = evaluation.validate(val_loader)
+    stats["device"] = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    print(json.dumps(stats, default=float))
+    return stats
+
+
+if __name__ == "__main__":
+    main()

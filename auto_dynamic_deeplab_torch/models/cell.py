@@ -1,0 +1,134 @@
+"""Decoded (fixed-genotype) cell (models/cell.py of the JAX package; the
+reference's ADD.py Cell, :14-116). Unfused DAG execution only.
+
+A cell is a B-block DAG over states [s0, s1, block_0, ..., block_{B-1}];
+block i consumes edges offset..offset+len(states)-1 with
+offset = sum_{j<i}(2+j). The genotype selects 2 edges per block and one
+primitive per edge; the cell output is the channel concat of the B blocks.
+
+Reference quirk kept for checkpoint parity: the op list is built in genotype
+*row order* but consumed while iterating edges in *ascending* order, so the
+op of row k lands on the k-th smallest selected edge (the shipped genotype's
+rows [19,7],[18,5] are unsorted).
+
+Submodules carry the flax names (``preprocess``, ``pre_preprocess`` or
+``pre_{i}`` + ``pre_preprocess_1x1``, ``dense_process``, ``ops_{k}``) so the
+weight bridge maps parameters one to one.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from ..nas.genotypes import PRIMITIVES
+from ..ops.primitives import OPS, FactorizedReduce, ReLUConvBN
+from ..ops.resize import resize_bilinear, scale_dimension
+
+GenotypeRows = Tuple[Tuple[int, int], ...]
+
+
+def as_genotype_rows(cell_arch) -> GenotypeRows:
+    """Normalize a (k, 2) array/sequence to a tuple of int pairs."""
+    return tuple((int(e), int(o)) for e, o in cell_arch)
+
+
+def edge_op_assignment(rows: GenotypeRows) -> Tuple[Tuple[int, int], ...]:
+    """(edge, op) pairs with ops in row order on the sorted edges."""
+    edges = sorted(e for e, _ in rows)
+    return tuple(zip(edges, [o for _, o in rows]))
+
+
+class FixedCell(nn.Module):
+    """One decoded cell.
+
+    Args:
+      genotype: ((edge, op), ...) rows as decoded (row order preserved).
+      B: blocks per cell.
+      C_out: per-block channels (F * fm[level]).
+      downup_sample: +1 upsamples s1 2x before a 1x1 preprocess, -1 uses a
+        FactorizedReduce preprocess, 0 a 1x1 preprocess.
+      C_prev: channels of s1.
+      C_prev_prev: channels of s0 (when not ``dense_in``).
+      dense_in_channels: channels of each dense tap; non-empty means s0 is
+        the list of earlier taps, each 1x1-projected, concatenated and fused
+        by one more 1x1 (ADD.py:47-52,:87-93).
+      dense_out: also return dense_process(concat) (ADD.py:56-57,:114).
+    """
+
+    def __init__(
+        self,
+        genotype,
+        B: int,
+        C_out: int,
+        downup_sample: int,
+        C_prev: int,
+        C_prev_prev: Optional[int] = None,
+        dense_in_channels: Sequence[int] = (),
+        dense_out: bool = False,
+        affine: bool = True,
+        dtype: Optional[torch.dtype] = None,
+    ):
+        super().__init__()
+        self.B = B
+        self.downup_sample = downup_sample
+        self.dense_in = len(dense_in_channels) > 0
+        self.num_dense_in = len(dense_in_channels)
+        self.dense_out = dense_out
+        kw = dict(affine=affine, dtype=dtype)
+        if downup_sample == -1:
+            self.preprocess = FactorizedReduce(C_prev, C_out, **kw)
+        else:
+            self.preprocess = ReLUConvBN(C_prev, C_out, 1, **kw)
+        if self.dense_in:
+            for i, c in enumerate(dense_in_channels):
+                self.add_module(f"pre_{i}", ReLUConvBN(c, C_out, 1, **kw))
+            self.pre_preprocess_1x1 = ReLUConvBN(self.num_dense_in * C_out, C_out, 1, **kw)
+        else:
+            self.pre_preprocess = ReLUConvBN(C_prev_prev, C_out, 1, **kw)
+        if dense_out:
+            self.dense_process = ReLUConvBN(B * C_out, C_out, 1, **kw)
+        self.assignment = edge_op_assignment(as_genotype_rows(genotype))
+        self.selected = dict(self.assignment)
+        for k, (_, op) in enumerate(self.assignment):
+            self.add_module(f"ops_{k}", OPS[PRIMITIVES[op]](C_out, 1, **kw))
+
+    def forward(self, s0, s1: torch.Tensor):
+        """s0 is a tensor, or the list of dense taps with ``dense_in``.
+        Returns (prev_input, concat) or (prev_input, concat, dense fmap)."""
+        prev_input = s1
+        if self.downup_sample == 1:
+            target = (scale_dimension(s1.shape[2], 2), scale_dimension(s1.shape[3], 2))
+            s1 = resize_bilinear(s1, target, align_corners=False)
+        s1 = self.preprocess(s1)
+        hw = s1.shape[2:]
+        if self.dense_in:
+            if len(s0) != self.num_dense_in:
+                raise ValueError(f"expected {self.num_dense_in} dense taps, got {len(s0)}")
+            projected = [
+                getattr(self, f"pre_{i}")(resize_bilinear(tap, hw, align_corners=False))
+                for i, tap in enumerate(s0)
+            ]
+            s0 = self.pre_preprocess_1x1(torch.cat(projected, dim=1))
+        else:
+            if s0.shape[2] != s1.shape[2]:
+                s0 = resize_bilinear(s0, hw, align_corners=False)
+            s0 = self.pre_preprocess(s0)
+
+        states = [s0, s1]
+        k = 0
+        offset = 0
+        for _ in range(self.B):
+            block_inputs = []
+            for j, h in enumerate(states):
+                if offset + j in self.selected:
+                    block_inputs.append(getattr(self, f"ops_{k}")(h))
+                    k += 1
+            states.append(sum(block_inputs[1:], block_inputs[0]))
+            offset += len(states) - 1
+
+        concat = torch.cat(states[-self.B:], dim=1)
+        if self.dense_out:
+            return prev_input, concat, self.dense_process(concat)
+        return prev_input, concat

@@ -1,0 +1,63 @@
+"""5-branch ASPP of the decoded models (ops/aspp.py::ASPPTrain of the JAX
+package, aspp_train.py:8-61 of the reference).
+
+The JAX package computes the large-dilation branches as one matmul plus
+shifted adds (``_ShiftedDilatedConv3x3``) and the final 1x1 over a virtual
+concat (``_BranchSum1x1``): TPU rewrites of a dilated 3x3 conv and of
+concat → 1x1, with the same parameter names and shapes. Here they are the
+plain convs.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .norm import BatchNorm
+from .primitives import Conv2d
+from .resize import resize_bilinear
+
+
+class ASPPTrain(nn.Module):
+    """Branches: 1x1; three 3x3 atrous convs at dilation {6,12,18}*mult;
+    global average pool → 1x1 → upsample (align_corners=True). Concat → 1x1
+    to ``out`` → BN. No trailing ReLU (the decoder applies it)."""
+
+    def __init__(
+        self, in_features: int, out: int = 256, depth: int = 256, mult: float = 1.0,
+        dtype: Optional[torch.dtype] = None,
+    ):
+        super().__init__()
+        self.dils = {
+            "aspp2": int(6 * mult), "aspp3": int(12 * mult), "aspp4": int(18 * mult),
+        }
+        self.aspp1_conv = Conv2d(in_features, depth, 1, dtype=dtype)
+        self.aspp1_bn = BatchNorm(depth, dtype=dtype)
+        for name, d in self.dils.items():
+            self.add_module(
+                f"{name}_conv",
+                Conv2d(in_features, depth, 3, padding=d, dilation=d, dtype=dtype),
+            )
+            self.add_module(f"{name}_bn", BatchNorm(depth, dtype=dtype))
+        self.aspp5_conv = Conv2d(in_features, depth, 1, dtype=dtype)
+        self.aspp5_bn = BatchNorm(depth, dtype=dtype)
+        self.conv1 = Conv2d(5 * depth, out, 1, dtype=dtype)
+        self.bn1 = BatchNorm(out, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.relu(x)
+        branches = [F.relu(self.aspp1_bn(self.aspp1_conv(x)))]
+        # The dilated branches read contiguous NCHW: on an H100 cuDNN's bf16
+        # kernel for channels_last input takes 15-25 ms at dilation 12/18 on
+        # the flagship's 65x129x400 map, against 0.6 ms for NCHW input; fp32
+        # is no slower (scripts/torch_probe_dilated_conv.py).
+        xd = x.contiguous()
+        for name in self.dils:
+            conv, bn = getattr(self, f"{name}_conv"), getattr(self, f"{name}_bn")
+            branches.append(F.relu(bn(conv(xd))))
+        x5 = x.mean(dim=(2, 3), keepdim=True)
+        x5 = F.relu(self.aspp5_bn(self.aspp5_conv(x5)))
+        branches.append(resize_bilinear(x5, x.shape[2:], align_corners=True))
+        return self.bn1(self.conv1(torch.cat(branches, dim=1)))

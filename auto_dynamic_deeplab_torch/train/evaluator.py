@@ -1,0 +1,115 @@
+"""Evaluation drivers (train/evaluator.py of the JAX package; the
+reference's eval.py Evaluation, :29-230).
+
+Static mode: per-exit mIoU over the val set, with the per-exit entropy and
+argmax from K2 on CUDA logits. Dynamic mode: per-image early-exit inference
+reporting mIoU, mean latency, fps, early-exit rate and average confidence.
+PyTorch has no device-side ``cond``, so dynamic mode runs the engine's
+segment loop (the JAX package's ``fused=False`` path); the exit decisions
+and mIoU are the same as the fused program's by construction.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from ..kernels.confidence import entropy_argmax
+from ..utils.meters import AverageMeter
+from ..utils.metrics import Evaluator
+from .dynamic import DynamicInferenceEngine
+
+
+class Evaluation:
+    """Runs on ``device`` (cuda unless the caller asks for the CPU)."""
+
+    def __init__(self, model, num_classes: int, edm=None, device="cuda"):
+        self.engine = DynamicInferenceEngine(model, edm=edm, num_classes=num_classes, device=device)
+        self.model, self.edm, self.device = self.engine.model, self.engine.edm, self.engine.device
+        self.num_classes = num_classes
+
+    @torch.inference_mode()
+    def _forward(self, x: torch.Tensor):
+        """Per-exit (argmax (N, H, W), normalized entropy (N,))."""
+        preds, confs = [], []
+        for logits in self.model(x, class_leading=True):
+            ent, arg = entropy_argmax(logits, self.num_classes, class_axis=1)
+            preds.append(arg)
+            confs.append(ent)
+        return preds, confs
+
+    # ------------------------------------------------------------- static
+
+    def validate(self, loader) -> Dict:
+        """Per-exit mIoU + mean entropy confidence (train.py:278-297)."""
+        n_exits = len(self.model.exit_layers)
+        evaluators = [Evaluator(self.num_classes, self.device) for _ in range(n_exits)]
+        conf_meters = [AverageMeter() for _ in range(n_exits)]
+        for batch in loader:
+            x = torch.as_tensor(batch["image"]).to(self.device)
+            labels = torch.as_tensor(batch["label"]).to(self.device)
+            preds, confs = self._forward(x)
+            for k in range(n_exits):
+                evaluators[k].add_batch(labels, preds[k])
+                for c in confs[k].tolist():
+                    conf_meters[k].update(c)
+        return {
+            "miou": [e.Mean_Intersection_over_Union() for e in evaluators],
+            "pixel_acc": [e.Pixel_Accuracy() for e in evaluators],
+            "confidence": [m.avg for m in conf_meters],
+        }
+
+    # ------------------------------------------------------------ dynamic
+
+    def dynamic_inference(
+        self,
+        loader,
+        threshold: float = 0.0,
+        confidence: str = "edm",
+        warmup_shape=None,
+        fused: bool = False,
+    ) -> Dict:
+        if fused:
+            raise NotImplementedError(
+                "the single-program (fused) dynamic inference needs CUDA graphs "
+                "per segment: ROADMAP Queue 1 item 7 (fused_program)"
+            )
+        evaluator = Evaluator(self.num_classes, self.device)
+        latency = AverageMeter()
+        conf_meter = AverageMeter()
+        n_images = 0
+        early_exits = 0
+        exit_histogram = [0] * len(self.model.exit_layers)
+
+        if warmup_shape is not None:
+            self.engine.warmup(warmup_shape, confidence, threshold)
+        warmed = warmup_shape is not None
+        for batch in loader:
+            images, labels = batch["image"], batch["label"]
+            for i in range(images.shape[0]):
+                x = images[i : i + 1]
+                if not warmed:
+                    self.engine.warmup(x.shape, confidence, threshold)
+                    warmed = True
+                logits, exit_idx, dt, conf = self.engine.infer(
+                    x, threshold=threshold, confidence=confidence
+                )
+                pred = logits.argmax(dim=1)[0]  # (N, C, H, W) logits
+                evaluator.add_batch(torch.as_tensor(labels[i]).to(self.device), pred)
+                latency.update(dt)
+                if not np.isnan(conf):
+                    conf_meter.update(conf)
+                exit_histogram[exit_idx] += 1
+                early_exits += int(exit_idx < len(self.model.exit_layers) - 1)
+                n_images += 1
+
+        return {
+            "miou": evaluator.Mean_Intersection_over_Union(),
+            "mean_latency_s": latency.avg,
+            "fps": 1.0 / max(latency.avg, 1e-12),
+            "early_exit_rate": early_exits / max(n_images, 1),
+            "avg_confidence": conf_meter.avg,
+            "exit_histogram": exit_histogram,
+            "n_images": n_images,
+        }

@@ -1,0 +1,48 @@
+"""Seeded parameter initialization (no weights are ever downloaded).
+
+The draws come from an explicit ``torch.Generator``; the distributions are
+the reference's: kaiming-normal (fan_in, gain sqrt 2) convs
+(modeling/ADD.py:491-500), lecun-normal dense layers (flax's default), zero
+biases, and BN at scale 1, bias 0, mean 0, var 1.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from ..ops.norm import BatchNorm
+from ..ops.primitives import Conv2d, Dense
+
+
+@torch.no_grad()
+def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    for m in module.modules():
+        if isinstance(m, (Conv2d, Dense)):
+            fan_in = m.kernel[0].numel()
+            gain = 2.0 if isinstance(m, Conv2d) else 1.0
+            m.kernel.normal_(0.0, math.sqrt(gain / fan_in), generator=generator)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, BatchNorm):
+            m.mean.zero_()
+            m.var.fill_(1.0)
+            if m.affine:
+                m.scale.fill_(1.0)
+                m.bias.zero_()
+    return module
+
+
+@torch.no_grad()
+def randomize_bn(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Non-trivial BN statistics and affine terms, so that BN folding and
+    the eval normalization are really exercised."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.mean.normal_(0.0, 0.5, generator=generator)
+            m.var.uniform_(0.5, 2.0, generator=generator)
+            if m.affine:
+                m.scale.uniform_(0.5, 1.5, generator=generator)
+                m.bias.normal_(0.0, 0.3, generator=generator)
+    return module
