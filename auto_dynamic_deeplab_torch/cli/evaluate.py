@@ -4,7 +4,8 @@ confidence. Weights come from --seed (checkpoint loading is ROADMAP Queue 1
 item 9).
 
     python -m auto_dynamic_deeplab_torch.cli.evaluate --dynamic \\
-        --confidence entropy --threshold 0.5 --synthetic-crop 1025 2049
+        --confidence entropy --threshold 0.5 --synthetic-crop 1025 2049 \\
+        [--cell-exec flat]
 """
 from __future__ import annotations
 
@@ -30,9 +31,9 @@ def build_parser():
     p.add_argument("--threshold", type=float, default=0.0)
     p.add_argument("--genotype", default=None)
     p.add_argument(
-        "--cell-exec", default="xla", choices=["xla"],
-        help="cell execution: plain ops (the fused cell kernels of the JAX "
-        "package's 'flat' mode are ROADMAP slice 2)",
+        "--cell-exec", default="xla", choices=["xla", "flat"],
+        help="cell execution: plain ops (xla), or each cell's DAG through the "
+        "hand-written cell kernels K3-K6 (flat; their plain versions on the CPU)",
     )
     return p
 
@@ -51,7 +52,7 @@ def main(argv=None):
 
     model_cls = ADD if args.network == "ADD" else BaselineModel
     model = model_cls(path, C_index, genotype, nclass, F=args.F, B=args.B,
-                      low_level_layer=low_level_layer)
+                      low_level_layer=low_level_layer, flat_eval=args.cell_exec == "flat")
     init_params(model, torch.Generator().manual_seed(args.seed))
 
     edm = None

@@ -1,0 +1,565 @@
+"""K3-K6: the cell-DAG kernels of the ``--cell-exec flat`` path, host side.
+
+Counterpart of auto_dynamic_deeplab_tpu/kernels/cell_ops.py without the
+TPU's flat (C, lane) layout: the kernels (``csrc/cell_ops.cu``, whose note
+gives their bound and design) work on the port's states as they are,
+NCHW logical in channels_last memory, so one pixel's C channels are
+contiguous. This module holds, for each kernel, its plain PyTorch version
+(``*_reference``), its ctypes wrapper with a ``launches`` counter, and its
+plan (the tile and the shared-memory bytes, against 227 KB a block):
+
+  K3 ``block_stage``  one DAG block: 1-2 edges (sep, dil, skip), fp32 sum
+  K4 ``sep_fused``    one whole SepConv edge, stage 1 recomputed on a halo
+  K5 ``sep_stage``    one dw -> pw -> BN stage (two of them make a SepConv)
+  K6 ``dense_stage``  one DilConv edge
+
+A wrapper given a CPU tensor runs the plain version; given a CUDA tensor
+it launches the kernel or raises. ``run_dag`` drives a cell's B blocks
+with the route of the JAX package's ``run_dag_flat``: K3 where every
+active edge is sep/dil/skip and K3's plan fits, else one op at a time
+(pools as plain torch ops, ``none`` as zeros, sep by K4 or else K5 twice,
+dil by K6) summed in torch. The JAX package's last-resort XLA fallback is
+not carried over: a route that ends in no kernel raises.
+
+Rounding follows the Pallas kernels, not the unfused cell: the depthwise
+sum is rounded to the state dtype before the pointwise product, the mid is
+ReLU'd and then rounded, the depthwise taps stay fp32, the pointwise and
+dense weights are folded with the BN scale in fp32 and then cast, biases
+are fp32, and a block's edges are summed in fp32 and rounded once.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from collections import Counter
+from typing import List, NamedTuple, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..nas.genotypes import PRIMITIVES
+from ..ops.primitives import avg_pool_3x3, max_pool_3x3
+from ._build import load_library
+
+# op name -> (kind, k, dilation), as _EDGE_KINDS (cell_ops.py:534-540)
+EDGE_KINDS = {
+    "sep_conv_3x3": ("sep", 3, 1),
+    "sep_conv_5x5": ("sep", 5, 1),
+    "dil_conv_3x3": ("dil", 3, 2),
+    "dil_conv_5x5": ("dil", 5, 2),
+    "skip_connect": ("skip", 0, 0),
+}
+_KIND_CODE = {"skip": 0, "sep": 1, "dil": 2}
+
+SMEM_LIMIT = 232448  # 227 KB: the most shared memory one block may have on Hopper
+# Tiles (rows, columns) in order of preference. K3 and K4 recompute
+# SepConv's stage 1 on a k//2 halo, so they stop at 8x8 (at most 2.25x the
+# stage-1 work for sep5); the single-pass K5 and K6 only reload their
+# halo and may shrink further.
+RECOMPUTE_TILES = ((8, 16), (8, 8))
+STAGE_TILES = ((8, 16), (8, 8), (4, 8), (4, 4))
+
+
+class Plan(NamedTuple):
+    tile: Tuple[int, int]
+    smem: int
+
+
+class SepStageWeights(NamedTuple):
+    """One folded dw -> pw -> BN stage (sep_stage_weights, cell_ops.py:846):
+    dwk (C, k*k) fp32 depthwise taps; pw (C, O8) the pointwise (O, C) weight
+    with the BN scale folded in fp32, cast to the state dtype, transposed
+    and zero-padded to O8 = O rounded up to 8; bias (O8,) fp32."""
+
+    dwk: torch.Tensor
+    pw: torch.Tensor
+    bias: torch.Tensor
+    k: int
+
+
+class DenseWeights(NamedTuple):
+    """One folded DilConv (dense_stage_weights, cell_ops.py:863): q
+    (k*k, C, O8) the (O, k*k*C) conv weight with the BN scale folded in
+    fp32, cast to the state dtype, output channels innermost and padded to
+    O8; bias (O8,) fp32."""
+
+    q: torch.Tensor
+    bias: torch.Tensor
+    k: int
+    dil: int
+
+
+# --------------------------------------------------------------- plans
+
+
+def _r16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def _window_bytes(h: int, w: int, C: int, eb: int) -> int:
+    return _r16(h * w * (C | 1) * eb)  # odd channel pitch, as the kernels
+
+
+def _elem_bytes(dtype: torch.dtype) -> int:
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"the cell kernels take fp32 or bf16 states, not {dtype}")
+    return torch.finfo(dtype).bits // 8
+
+
+def _edge_bytes(name: str, C: int, eb: int, th: int, tw: int) -> int:
+    kind, k, dil = EDGE_KINDS[name]
+    if kind == "sep":
+        r = k // 2
+        return _window_bytes(th + 4 * r, tw + 4 * r, C, eb) + _window_bytes(th + 2 * r, tw + 2 * r, C, eb)
+    if kind == "dil":
+        reach = dil * (k // 2)
+        return _window_bytes(th + 2 * reach, tw + 2 * reach, C, eb)
+    return 0
+
+
+def _first_fit(tiles, smem_of) -> Optional[Plan]:
+    for th, tw in tiles:
+        smem = smem_of(th, tw)
+        if smem <= SMEM_LIMIT:
+            return Plan((th, tw), smem)
+    return None
+
+
+def plan_block(names: Sequence[str], C: int, dtype: torch.dtype) -> Optional[Plan]:
+    """K3's tile for a block of these active edges: an fp32 sum tile plus
+    the largest edge's working space (edges run one after another). None
+    when an edge is not sep/dil/skip or nothing fits."""
+    if not names or len(names) > 2 or any(n not in EDGE_KINDS for n in names):
+        return None
+    eb = _elem_bytes(dtype)
+    return _first_fit(
+        RECOMPUTE_TILES,
+        lambda th, tw: _r16(th * tw * C * 4) + max(_edge_bytes(n, C, eb, th, tw) for n in names),
+    )
+
+
+def plan_sep_fused(name: str, C: int, dtype: torch.dtype) -> Optional[Plan]:
+    """K4's tile: input window with a 2(k//2) halo plus the stage-1 region."""
+    if EDGE_KINDS.get(name, ("",))[0] != "sep":
+        raise ValueError(f"{name} is not a SepConv")
+    eb = _elem_bytes(dtype)
+    return _first_fit(RECOMPUTE_TILES, lambda th, tw: _edge_bytes(name, C, eb, th, tw))
+
+
+def plan_sep_stage(name: str, C: int, dtype: torch.dtype) -> Optional[Plan]:
+    """K5's tile: input window with a k//2 halo plus the depthwise tile."""
+    if EDGE_KINDS.get(name, ("",))[0] != "sep":
+        raise ValueError(f"{name} is not a SepConv")
+    eb, r = _elem_bytes(dtype), EDGE_KINDS[name][1] // 2
+    return _first_fit(
+        STAGE_TILES,
+        lambda th, tw: _window_bytes(th + 2 * r, tw + 2 * r, C, eb) + _window_bytes(th, tw, C, eb),
+    )
+
+
+def plan_dense_stage(name: str, C: int, dtype: torch.dtype) -> Optional[Plan]:
+    """K6's tile: input window with its dilated halo."""
+    if EDGE_KINDS.get(name, ("",))[0] != "dil":
+        raise ValueError(f"{name} is not a DilConv")
+    eb = _elem_bytes(dtype)
+    return _first_fit(STAGE_TILES, lambda th, tw: _edge_bytes(name, C, eb, th, tw))
+
+
+# ------------------------------------------------------------- folding
+
+
+def _fold_sep_stage(dw, pw, bn, dtype) -> SepStageWeights:
+    C, k = dw.kernel.shape[0], dw.kernel.shape[-1]
+    s, b = bn.folded()
+    w = (pw.kernel[:, :, 0, 0].float() * s[:, None]).to(dtype)  # (O, C), scale folded in fp32
+    o8 = -(-w.shape[0] // 8) * 8
+    return SepStageWeights(
+        dwk=dw.kernel.detach().float().reshape(C, k * k).contiguous(),
+        pw=F.pad(w.t(), (0, o8 - w.shape[0])).contiguous(),
+        bias=F.pad(b.float(), (0, o8 - b.shape[0])).contiguous(),
+        k=k,
+    )
+
+
+def _fold_dense(conv, bn, dtype) -> DenseWeights:
+    O, C, k, _ = conv.kernel.shape
+    s, b = bn.folded()
+    w = (conv.kernel.float() * s[:, None, None, None]).to(dtype)  # (O, C, k, k)
+    o8 = -(-O // 8) * 8
+    q = F.pad(w.permute(2, 3, 1, 0).reshape(k * k, C, O), (0, o8 - O))
+    return DenseWeights(
+        q=q.contiguous(), bias=F.pad(b.float(), (0, o8 - O)).contiguous(), k=k, dil=conv.dilation
+    )
+
+
+def edge_weights(op: nn.Module, name: str, dtype: torch.dtype):
+    """The folded weights of one primitive for states of ``dtype``:
+    (stage 1, stage 2) SepStageWeights for a SepConv, DenseWeights for a
+    DilConv, None otherwise. Kept on the module and folded again only when
+    a parameter or BN statistic changed (in place, moved or replaced):
+    folding is about ten small launches an edge, on a path whose eager loop
+    is bound by its launches."""
+    kind = EDGE_KINDS.get(name, ("",))[0]
+    if kind not in ("sep", "dil"):
+        return None
+    tensors = list(op.parameters()) + list(op.buffers())
+    key = (dtype, tuple((t.data_ptr(), t.device, -1 if t.is_inference() else t._version) for t in tensors))
+    cached = getattr(op, "_folded_edge", None)
+    if cached is not None and cached[0] == key:
+        return cached[1]
+    with torch.no_grad():
+        if kind == "sep":
+            w = (_fold_sep_stage(op.dw1, op.pw1, op.bn1, dtype),
+                 _fold_sep_stage(op.dw2, op.pw2, op.bn2, dtype))
+        else:
+            w = _fold_dense(op.conv, op.bn, dtype)
+    op._folded_edge = (key, w)
+    return w
+
+
+# ------------------------------------------------------ plain versions
+
+
+def sep_stage_reference(x, w: SepStageWeights, in_relu: bool, out_relu: bool, round_out: bool = True):
+    """Plain K5: [ReLU] -> dw k x k (fp32 taps) -> round -> pw (fp32
+    accumulation) -> +bias -> [ReLU] -> round (fp32 when not round_out)."""
+    dtype, C = x.dtype, x.shape[1]
+    if in_relu:
+        x = F.relu(x)
+    d = F.conv2d(x.float(), w.dwk.view(C, 1, w.k, w.k), padding=w.k // 2, groups=C)
+    d = d.to(dtype).float()
+    y = F.conv2d(d, w.pw[:, :C].float().t()[:, :, None, None]) + w.bias[:C].view(1, C, 1, 1)
+    if out_relu:
+        y = F.relu(y)
+    return y.to(dtype) if round_out else y
+
+
+def sep_fused_reference(x, w1: SepStageWeights, w2: SepStageWeights, round_out: bool = True):
+    """Plain K4: the two stages, the mid ReLU'd and rounded in between."""
+    mid = sep_stage_reference(x, w1, in_relu=True, out_relu=True)
+    return sep_stage_reference(mid, w2, in_relu=False, out_relu=False, round_out=round_out)
+
+
+def dense_stage_reference(x, w: DenseWeights, round_out: bool = True):
+    """Plain K6: ReLU -> dense k x k conv at the dilation -> +bias -> round."""
+    dtype, C = x.dtype, x.shape[1]
+    q = w.q[:, :, :C].float().reshape(w.k, w.k, C, C).permute(3, 2, 0, 1)
+    y = F.conv2d(F.relu(x).float(), q, dilation=w.dil, padding=w.dil * (w.k // 2))
+    y = y + w.bias[:C].view(1, C, 1, 1)
+    return y.to(dtype) if round_out else y
+
+
+def _edge_reference(x, name: str, w):
+    kind = EDGE_KINDS[name][0]
+    if kind == "skip":
+        return x.float()
+    if kind == "sep":
+        return sep_fused_reference(x, *w, round_out=False)
+    return dense_stage_reference(x, w, round_out=False)
+
+
+def block_stage_reference(edges):
+    """Plain K3: the edges' fp32 outputs summed in fp32, rounded once."""
+    acc = None
+    for x, name, w in edges:
+        y = _edge_reference(x, name, w)
+        acc = y if acc is None else acc + y
+    return acc.to(edges[0][0].dtype)
+
+
+# -------------------------------------------------------------- binding
+
+
+class _Edge(ctypes.Structure):
+    _fields_ = [
+        ("src", ctypes.c_void_p), ("img_stride", ctypes.c_longlong),
+        ("ps", ctypes.c_int), ("kind", ctypes.c_int), ("k", ctypes.c_int), ("dil", ctypes.c_int),
+        ("dwk1", ctypes.c_void_p), ("w1", ctypes.c_void_p), ("b1", ctypes.c_void_p),
+        ("dwk2", ctypes.c_void_p), ("w2", ctypes.c_void_p), ("b2", ctypes.c_void_p),
+    ]
+
+
+class _Args(ctypes.Structure):
+    _fields_ = [
+        ("e", _Edge * 2), ("n_edges", ctypes.c_int), ("in_relu", ctypes.c_int),
+        ("out_relu", ctypes.c_int), ("is_bf16", ctypes.c_int), ("out", ctypes.c_void_p),
+        ("out_img_stride", ctypes.c_longlong), ("out_ps", ctypes.c_int), ("N", ctypes.c_int),
+        ("H", ctypes.c_int), ("W", ctypes.c_int), ("C", ctypes.c_int), ("O8", ctypes.c_int),
+        ("th", ctypes.c_int), ("tw", ctypes.c_int), ("smem", ctypes.c_int),
+    ]
+
+
+_ENTRY = {"block": "add_cell_block", "sep_fused": "add_cell_sep_fused",
+          "sep_stage": "add_cell_sep_stage", "dense_stage": "add_cell_dense_stage"}
+
+
+@functools.lru_cache(maxsize=1)
+def library() -> ctypes.CDLL:
+    """``csrc/cell_ops.cu``, built at first use, with its C interface declared."""
+    lib = load_library("cell_ops")
+    args_p = ctypes.POINTER(_Args)
+    for fn in _ENTRY.values():
+        getattr(lib, fn).argtypes = [args_p, ctypes.c_void_p]
+        getattr(lib, fn).restype = ctypes.c_int
+    lib.add_cell_smem_bytes.argtypes = [ctypes.c_int, args_p]
+    lib.add_cell_smem_bytes.restype = ctypes.c_longlong
+    lib.add_cell_args_size.argtypes = []
+    lib.add_cell_args_size.restype = ctypes.c_int
+    lib.add_cell_error_string.argtypes = [ctypes.c_int]
+    lib.add_cell_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _pixel_layout(t: torch.Tensor, like: torch.Tensor, what: str) -> Tuple[int, int]:
+    """(image stride, pixel stride) of a channels_last state, which may be a
+    channel slice of a wider buffer; raises on any other layout."""
+    if t.device != like.device or t.dtype != like.dtype or t.shape != like.shape:
+        raise ValueError(
+            f"{what}: {tuple(t.shape)} {t.dtype} on {t.device} does not match "
+            f"{tuple(like.shape)} {like.dtype} on {like.device}"
+        )
+    _, C, H, W = t.shape
+    sn, sc, sh, sw = t.stride()
+    if (C > 1 and sc != 1) or sw < C or (H > 1 and sh != W * sw):
+        raise ValueError(
+            f"{what}: strides {t.stride()} are not channels_last (channels contiguous, "
+            "pixels evenly spaced); the cell kernels take channels_last states"
+        )
+    return sn, sw
+
+
+def _check_state(x: torch.Tensor, fn: str):
+    if x.device.type != "cuda":
+        raise ValueError(f"{fn} launches a CUDA kernel; got a tensor on {x.device}")
+    if x.dim() != 4:
+        raise ValueError(f"{fn}: expected an (N, C, H, W) state, got {tuple(x.shape)}")
+    _elem_bytes(x.dtype)
+
+
+def _check_weights(tensors, x: torch.Tensor, fn: str):
+    for t in tensors:
+        if t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{fn}: weights must be contiguous, 16-byte aligned, on {x.device}")
+
+
+def _fill_edge(e: _Edge, x: torch.Tensor, name: str, w, like: torch.Tensor, fn: str):
+    """One edge's source and weights: a sep edge's ``w`` is its stages
+    (both for K3/K4, the one to run for K5), a dil edge's DenseWeights.
+    Taps and biases are fp32, pointwise and dense weights the state dtype."""
+    kind, k, dil = EDGE_KINDS[name]
+    e.img_stride, e.ps = _pixel_layout(x, like, f"{fn} source")
+    e.src, e.kind, e.k, e.dil = x.data_ptr(), _KIND_CODE[kind], k, dil
+    C, o8, f32 = like.shape[1], -(-like.shape[1] // 8) * 8, torch.float32
+    if kind == "sep":
+        for i, st in enumerate(w, start=1):
+            shapes = tuple(st.dwk.shape), tuple(st.pw.shape), tuple(st.bias.shape)
+            dtypes = st.dwk.dtype, st.pw.dtype, st.bias.dtype
+            if st.k != k or shapes != ((C, k * k), (C, o8), (o8,)) or dtypes != (f32, like.dtype, f32):
+                raise ValueError(f"{fn}: {name} stage-{i} weights do not fit C={C} {like.dtype}")
+            _check_weights((st.dwk, st.pw, st.bias), like, fn)
+            setattr(e, f"dwk{i}", st.dwk.data_ptr())
+            setattr(e, f"w{i}", st.pw.data_ptr())
+            setattr(e, f"b{i}", st.bias.data_ptr())
+    elif kind == "dil":
+        if (w.k, w.dil) != (k, dil) or tuple(w.q.shape) != (k * k, C, o8) or tuple(w.bias.shape) != (o8,) \
+                or (w.q.dtype, w.bias.dtype) != (like.dtype, f32):
+            raise ValueError(f"{fn}: {name} weights do not fit C={C} {like.dtype}")
+        _check_weights((w.q, w.bias), like, fn)
+        e.w1, e.b1 = w.q.data_ptr(), w.bias.data_ptr()
+
+
+def _launch(entry: str, like: torch.Tensor, edges, plan: Plan, out: torch.Tensor,
+            in_relu: bool = False, out_relu: bool = False):
+    a = _Args()
+    for e, (x, name, w) in zip(a.e, edges):
+        _fill_edge(e, x, name, w, like, entry)
+    N, C, H, W = like.shape
+    a.n_edges, a.in_relu, a.out_relu = len(edges), int(in_relu), int(out_relu)
+    a.is_bf16 = int(like.dtype == torch.bfloat16)
+    a.out_img_stride, a.out_ps = _pixel_layout(out, like, f"{entry} output")
+    a.out = out.data_ptr()
+    a.N, a.H, a.W, a.C, a.O8 = N, H, W, C, -(-C // 8) * 8
+    (a.th, a.tw), a.smem = plan.tile, plan.smem
+    lib = library()
+    rc = getattr(lib, _ENTRY[entry])(ctypes.byref(a), torch.cuda.current_stream(like.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"cell kernel {entry} failed to launch: CUDA error {rc} "
+            f"({lib.add_cell_error_string(rc).decode()})"
+        )
+
+
+def _new_state(like: torch.Tensor) -> torch.Tensor:
+    return torch.empty_like(like, memory_format=torch.channels_last)
+
+
+def _no_plan(fn: str, what: str, C: int, dtype) -> ValueError:
+    return ValueError(f"{fn}: no tile of {what} fits {SMEM_LIMIT} bytes of shared memory at C={C} {dtype}")
+
+
+# ------------------------------------------------------------- wrappers
+
+
+def block_stage(edges, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K3. ``edges``: 1-2 (state, op name, edge_weights) of one block, all
+    states of one shape and dtype. Returns their sum, written into ``out``
+    (e.g. a channel slice of the cell's concat buffer) when given."""
+    x0 = edges[0][0]
+    if x0.device.type == "cpu":
+        y = block_stage_reference(edges)
+        return y if out is None else out.copy_(y)
+    _check_state(x0, "block_stage")
+    names = [name for _, name, _ in edges]
+    plan = plan_block(names, x0.shape[1], x0.dtype)
+    if plan is None:
+        raise _no_plan("block_stage", names, x0.shape[1], x0.dtype)
+    out = _new_state(x0) if out is None else out
+    _launch("block", x0, edges, plan, out)
+    block_stage.launches += 1
+    return out
+
+
+def sep_fused(x: torch.Tensor, name: str, w) -> torch.Tensor:
+    """K4: a whole SepConv ``name`` with weights ``w`` = (stage 1, stage 2)."""
+    if x.device.type == "cpu":
+        return sep_fused_reference(x, *w)
+    _check_state(x, "sep_fused")
+    plan = plan_sep_fused(name, x.shape[1], x.dtype)
+    if plan is None:
+        raise _no_plan("sep_fused", name, x.shape[1], x.dtype)
+    out = _new_state(x)
+    _launch("sep_fused", x, [(x, name, w)], plan, out)
+    sep_fused.launches += 1
+    return out
+
+
+def sep_stage(x: torch.Tensor, name: str, w: SepStageWeights, in_relu: bool, out_relu: bool) -> torch.Tensor:
+    """K5: one stage of the SepConv ``name``."""
+    if x.device.type == "cpu":
+        return sep_stage_reference(x, w, in_relu, out_relu)
+    _check_state(x, "sep_stage")
+    plan = plan_sep_stage(name, x.shape[1], x.dtype)
+    if plan is None:
+        raise _no_plan("sep_stage", name, x.shape[1], x.dtype)
+    out = _new_state(x)
+    _launch("sep_stage", x, [(x, name, (w,))], plan, out, in_relu, out_relu)
+    sep_stage.launches += 1
+    return out
+
+
+def dense_stage(x: torch.Tensor, name: str, w: DenseWeights) -> torch.Tensor:
+    """K6: the DilConv ``name``."""
+    if x.device.type == "cpu":
+        return dense_stage_reference(x, w)
+    _check_state(x, "dense_stage")
+    plan = plan_dense_stage(name, x.shape[1], x.dtype)
+    if plan is None:
+        raise _no_plan("dense_stage", name, x.shape[1], x.dtype)
+    out = _new_state(x)
+    _launch("dense_stage", x, [(x, name, w)], plan, out)
+    dense_stage.launches += 1
+    return out
+
+
+for _fn in (block_stage, sep_fused, sep_stage, dense_stage):
+    _fn.launches = 0
+
+
+# ---------------------------------------------------------- DAG runner
+
+
+def dag_blocks(assignment, B: int) -> List[List[Tuple[int, int, int]]]:
+    """Per block, its selected edges as (state index, op index, primitive
+    index) in ascending edge order: ops are consumed in that order, as
+    run_dag_flat (cell_ops.py:1008-1014) does."""
+    selected = dict(assignment)
+    blocks, op_i, offset = [], 0, 0
+    for b in range(B):
+        rows = []
+        for j in range(2 + b):
+            if offset + j in selected:
+                rows.append((j, op_i, selected[offset + j]))
+                op_i += 1
+        blocks.append(rows)
+        offset += 2 + b
+    return blocks
+
+
+def block_route(names: Sequence[str], C: int, dtype: torch.dtype) -> Tuple[str, ...]:
+    """The kernels one block launches, in order: ("block_stage",) when K3
+    takes it, else one entry per conv op of the per-op branch
+    ("sep_fused", "sep_stage" twice, "dense_stage"); pools, skip and none
+    launch none of them. Raises where a conv op has no kernel that fits."""
+    active = [n for n in names if n != "none"]
+    if active and all(n in EDGE_KINDS for n in active) and plan_block(active, C, dtype) is not None:
+        return ("block_stage",)
+    route = []
+    for n in active:
+        kind = EDGE_KINDS.get(n, ("pool",))[0]
+        if kind == "sep":
+            if plan_sep_fused(n, C, dtype) is not None:
+                route.append("sep_fused")
+            elif plan_sep_stage(n, C, dtype) is not None:
+                route += ["sep_stage", "sep_stage"]
+            else:
+                raise _no_plan("run_dag", n, C, dtype)
+        elif kind == "dil":
+            if plan_dense_stage(n, C, dtype) is None:
+                raise _no_plan("run_dag", n, C, dtype)
+            route.append("dense_stage")
+    return tuple(route)
+
+
+def dag_launches(assignment, B: int, C: int, dtype: torch.dtype, primitives=PRIMITIVES) -> Counter:
+    """Kernel launches of one cell's DAG at width C in ``dtype``."""
+    count = Counter()
+    for rows in dag_blocks(assignment, B):
+        count.update(block_route([primitives[p] for _, _, p in rows], C, dtype))
+    return count
+
+
+def _per_op(x: torch.Tensor, name: str, op: nn.Module) -> torch.Tensor:
+    if name == "none":
+        return torch.zeros_like(x)
+    if name == "skip_connect":
+        return x
+    if name == "max_pool_3x3":
+        return max_pool_3x3(x, 1)
+    if name == "avg_pool_3x3":
+        return avg_pool_3x3(x, 1)
+    kind = EDGE_KINDS[name][0]
+    w = edge_weights(op, name, x.dtype)
+    if kind == "dil":
+        return dense_stage(x, name, w)
+    if plan_sep_fused(name, x.shape[1], x.dtype) is not None:
+        return sep_fused(x, name, w)
+    mid = sep_stage(x, name, w[0], in_relu=True, out_relu=True)
+    return sep_stage(mid, name, w[1], in_relu=False, out_relu=False)
+
+
+def run_dag(s0: torch.Tensor, s1: torch.Tensor, assignment, B: int, ops: Sequence[nn.Module],
+            primitives=PRIMITIVES) -> torch.Tensor:
+    """A cell's B-block DAG (run_dag_flat, cell_ops.py:985) over the states
+    s0, s1 (N, C, H, W) and the cell's ops in ascending edge order. Returns
+    the channel concat of the B block states, (N, B*C, H, W) channels_last:
+    each block is written into its channel slice, and later blocks read
+    their inputs from there."""
+    N, C, H, W = s1.shape
+    # the preprocess 1x1s hand over channels_last states: no copy for them
+    states = [s.contiguous(memory_format=torch.channels_last) for s in (s0, s1)]
+    concat = torch.empty((N, H, W, B * C), dtype=s1.dtype, device=s1.device).permute(0, 3, 1, 2)
+    for b, rows in enumerate(dag_blocks(assignment, B)):
+        dst = concat[:, b * C:(b + 1) * C]
+        names = [primitives[p] for _, _, p in rows]
+        active = [(states[j], n, ops[i]) for (j, i, _), n in zip(rows, names) if n != "none"]
+        if block_route(names, C, s1.dtype) == ("block_stage",):
+            block_stage([(x, n, edge_weights(op, n, x.dtype)) for x, n, op in active], out=dst)
+        else:
+            outs = [_per_op(states[j], n, ops[i]) for (j, i, _), n in zip(rows, names)]
+            total = outs[0] if outs else torch.zeros_like(s1)
+            for o in outs[1:]:
+                total = total + o
+            dst.copy_(total)
+        states.append(dst)
+    return concat

@@ -1,5 +1,9 @@
 """Decoded (fixed-genotype) cell (models/cell.py of the JAX package; the
-reference's ADD.py Cell, :14-116). Unfused DAG execution only.
+reference's ADD.py Cell, :14-116). The B-block DAG runs op by op
+(``flat_eval=False``), or with ``flat_eval=True`` through
+``kernels.cell_ops.run_dag``: the hand-written cell kernels K3-K6 on a
+CUDA tensor, their plain versions on a CPU tensor (the JAX package's
+``--cell-exec flat``, models/cell.py:172-203, without its batch-1 limit).
 
 A cell is a B-block DAG over states [s0, s1, block_0, ..., block_{B-1}];
 block i consumes edges offset..offset+len(states)-1 with
@@ -22,6 +26,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from ..kernels.cell_ops import run_dag
 from ..nas.genotypes import PRIMITIVES
 from ..ops.primitives import OPS, FactorizedReduce, ReLUConvBN
 from ..ops.resize import resize_bilinear, scale_dimension
@@ -55,6 +60,7 @@ class FixedCell(nn.Module):
         the list of earlier taps, each 1x1-projected, concatenated and fused
         by one more 1x1 (ADD.py:47-52,:87-93).
       dense_out: also return dense_process(concat) (ADD.py:56-57,:114).
+      flat_eval: run the DAG through ``run_dag`` (same parameters).
     """
 
     def __init__(
@@ -69,9 +75,11 @@ class FixedCell(nn.Module):
         dense_out: bool = False,
         affine: bool = True,
         dtype: Optional[torch.dtype] = None,
+        flat_eval: bool = False,
     ):
         super().__init__()
         self.B = B
+        self.flat_eval = flat_eval
         self.downup_sample = downup_sample
         self.dense_in = len(dense_in_channels) > 0
         self.num_dense_in = len(dense_in_channels)
@@ -116,19 +124,22 @@ class FixedCell(nn.Module):
                 s0 = resize_bilinear(s0, hw, align_corners=False)
             s0 = self.pre_preprocess(s0)
 
-        states = [s0, s1]
-        k = 0
-        offset = 0
-        for _ in range(self.B):
-            block_inputs = []
-            for j, h in enumerate(states):
-                if offset + j in self.selected:
-                    block_inputs.append(getattr(self, f"ops_{k}")(h))
-                    k += 1
-            states.append(sum(block_inputs[1:], block_inputs[0]))
-            offset += len(states) - 1
-
-        concat = torch.cat(states[-self.B:], dim=1)
+        if self.flat_eval:
+            ops = [getattr(self, f"ops_{k}") for k in range(len(self.assignment))]
+            concat = run_dag(s0, s1, self.assignment, self.B, ops)
+        else:
+            states = [s0, s1]
+            k = 0
+            offset = 0
+            for _ in range(self.B):
+                block_inputs = []
+                for j, h in enumerate(states):
+                    if offset + j in self.selected:
+                        block_inputs.append(getattr(self, f"ops_{k}")(h))
+                        k += 1
+                states.append(sum(block_inputs[1:], block_inputs[0]))
+                offset += len(states) - 1
+            concat = torch.cat(states[-self.B:], dim=1)
         if self.dense_out:
             return prev_input, concat, self.dense_process(concat)
         return prev_input, concat

@@ -82,7 +82,9 @@ class DecodedNet(nn.Module):
 
     ``network_arch`` is the level path; ``C_index`` the early-exit layer
     indices (the final layer is always an exit); ``genotype`` the decoded
-    cell rows; ``dense=True`` gives ADD's densely connected variant.
+    cell rows; ``dense=True`` gives ADD's densely connected variant;
+    ``flat_eval=True`` runs every cell's DAG through the cell kernels
+    (``--cell-exec flat``) with the same parameters.
     """
 
     def __init__(
@@ -97,6 +99,7 @@ class DecodedNet(nn.Module):
         dense: bool = True,
         fp32_eval_logits: bool = False,
         dtype: Optional[torch.dtype] = None,
+        flat_eval: bool = False,
     ):
         super().__init__()
         arch = tuple(int(v) for v in network_arch)
@@ -124,7 +127,7 @@ class DecodedNet(nn.Module):
                 f"cell_{i}",
                 FixedCell(
                     genotype, B, c_out, downup, c_prev,
-                    dense_out=dense and i < n - 2, dtype=dtype, **kw,
+                    dense_out=dense and i < n - 2, dtype=dtype, flat_eval=flat_eval, **kw,
                 ),
             )
 

@@ -1,24 +1,32 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (auto_dynamic_deeplab_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py                 # every phase, one card
-    python3 chip_smoke.py --phases 1,2,3  # a subset (device, K1, K2)
+    python3 chip_smoke.py                   # every phase, one card
+    python3 chip_smoke.py --phases 1,2,3,4  # a subset (device, K1, K2, K3-K6)
 
-Phases, each printing one JSON line and raising on failure:
-  1. device: the card, its power limit and the kernels' build time;
+Phases, each printing JSON lines and raising on failure:
+  1. device: the card, its power limit and the kernels' build time (every
+     csrc/*.cu, one nvcc each, all at once);
   2. K1 (stems, CUDA C++) against its plain version at the main path's
      shapes, fp32 (TF32 off) and bf16, with CUDA-event timings;
   3. K2 (entropy + argmax, Triton) against its plain version;
-  4. the flagship ADD (C=2, F=20, B=5, 19 classes, seeded weights and BN
+  4. K3-K6 (the cell kernels, CUDA C++) against their plain versions at
+     the flagship's DAG widths (C, H, W) = (40, 129, 257), (80, 65, 129),
+     (160, 33, 65), fp32 (TF32 off) and bf16: every block of the flagship
+     genotype, a skip+sep and a one-edge block, and each conv op through
+     K4, K5 (two passes) and K6, with the route each block takes;
+  5. the flagship ADD (C=2, F=20, B=5, 19 classes, seeded weights and BN
      statistics, fp32) per-exit logits on the card against the same model
-     on the CPU at 129x257;
-  5. the main path through its entry point, cli.evaluate.main, on
+     on the CPU at 129x257, with --cell-exec xla and flat;
+  6. the main paths through their entry point, cli.evaluate.main, on
      1025x2049 synthetic images: static, --dynamic entropy at thresholds 0
-     and 1.01, --dynamic edm; the kernels' launch counts are read around
-     this phase;
-  6. the flagship bf16 engine as bench.py builds it: p50 early-exit and
-     full-depth latency at 1025x2049, batch 1;
-  7. the kernels summary line.
+     and 1.01, --dynamic edm, each with --cell-exec xla and flat, then a
+     mixed genotype (pools, skip, none) with flat; every kernel's launch
+     count is set to 0 just before each run and read just after, and the
+     flat runs' K3-K6 counts must equal what the routes predict;
+  7. the flagship bf16 engine as bench.py builds it, xla and flat: p50
+     early-exit and full-depth latency at 1025x2049, batch 1;
+  8. the kernels summary line.
 The last lines are the kernels summary, the card's name and power limit
 from nvidia-smi, and {"ok": true, "device": {...}}. Without a GPU, or
 without the port beside it, the script exits non-zero and prints no
@@ -31,14 +39,30 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from collections import Counter
+from pathlib import Path
 
+import numpy as np
 import torch
 
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12   # float32 outside the tensor cores
 H100_BYTES_PER_S = 3.35e12
 FULL_HW = (1025, 2049)
+# the flagship's DAG widths at 1025x2049: level 1, 2, 3
+CELL_SHAPES = ((40, 129, 257), (80, 65, 129), (160, 33, 65))
+# the flagship genotype's blocks, in order, then a skip+sep and a one-edge block
+CELL_BLOCKS = (
+    ("dil_conv_5x5", "sep_conv_3x3"), ("sep_conv_3x3", "dil_conv_3x3"),
+    ("sep_conv_3x3", "sep_conv_3x3"), ("sep_conv_5x5", "sep_conv_5x5"),
+    ("dil_conv_5x5", "sep_conv_5x5"), ("skip_connect", "sep_conv_3x3"), ("sep_conv_5x5",),
+)
+# pools, skip and none: max_pool+sep3 (per-op K4), skip+dil5 (K3),
+# avg_pool+dil3 (per-op K6), none+sep5 (one-edge K3), skip+sep3 (K3)
+MIXED_GENOTYPE = [[0, 1], [1, 4], [2, 3], [3, 7], [5, 2], [8, 6], [11, 0], [13, 5], [18, 3], [19, 4]]
+CELL_KERNELS = ("block_stage", "sep_fused", "sep_stage", "dense_stage")
 
 
 def emit(obj):
@@ -95,6 +119,79 @@ def entropy_bound(n, c, h, w, in_bytes):
     flops = n * h * w * (5 * c + 4)
     nbytes = n * h * w * (c * in_bytes + 4)
     return bound(flops, nbytes, H100_FP32_FLOPS)
+
+
+def _edge_flops(name, c):
+    """FLOP a pixel of one primitive at C in = C out (a multiply-add is 2)."""
+    if name.startswith("sep_conv"):
+        k = int(name[-1])
+        return 2 * (2 * k * k * c + 2 * c * c)
+    if name.startswith("dil_conv"):
+        k = int(name[-1])
+        return 2 * k * k * c * c
+    return 9 * c if name.endswith("pool_3x3") else 0
+
+
+def cell_bound(names, c, h, w, n_sources, dtype):
+    """One block (or one op, with one name): the edges' FLOP plus one add a
+    value for each extra edge; each distinct source read once, the output
+    written once."""
+    eb = torch.finfo(dtype).bits // 8
+    flops = h * w * (sum(_edge_flops(nm, c) for nm in names) + c * (len(names) - 1))
+    nbytes = (n_sources + 1) * h * w * c * eb
+    return bound(flops, nbytes, H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS)
+
+
+def stage_bound(k, c, h, w, dtype):
+    """One dw k x k -> pw stage (K5)."""
+    eb = torch.finfo(dtype).bits // 8
+    flops = h * w * (2 * k * k * c + 2 * c * c)
+    return bound(flops, 2 * h * w * c * eb, H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS)
+
+
+def dag_totals(genotype, dtype):
+    """FLOP and bytes of the 12 cells' DAGs of the flagship at 1025x2049."""
+    from auto_dynamic_deeplab_torch.kernels.cell_ops import PRIMITIVES, dag_blocks
+    from auto_dynamic_deeplab_torch.models.cell import as_genotype_rows, edge_op_assignment
+    from auto_dynamic_deeplab_torch.nas import NETWORK_ARCH
+
+    eb = torch.finfo(dtype).bits // 8
+    blocks = dag_blocks(edge_op_assignment(as_genotype_rows(genotype)), 5)
+    flops = nbytes = 0
+    for level in NETWORK_ARCH[2]["path"]:
+        c, h, w = CELL_SHAPES[level - 1]
+        for rows in blocks:
+            names = [PRIMITIVES[p] for _, _, p in rows]
+            flops += h * w * (sum(_edge_flops(nm, c) for nm in names) + c * (len(names) - 1))
+            nbytes += (len({j for j, _, _ in rows}) + 1) * h * w * c * eb
+    return flops, nbytes
+
+
+def _cell_fns():
+    from auto_dynamic_deeplab_torch.kernels import cell_ops
+
+    return {name: getattr(cell_ops, name) for name in CELL_KERNELS}
+
+
+def _all_kernels():
+    from auto_dynamic_deeplab_torch.kernels.confidence import entropy_argmax_triton
+    from auto_dynamic_deeplab_torch.kernels.stems import fused_stems
+
+    return {"fused_stems": fused_stems, "entropy_argmax_triton": entropy_argmax_triton, **_cell_fns()}
+
+
+def expected_cell_launches(genotype, dtype, cells):
+    """K3-K6 launches of the flagship's cells ``cells`` under ``genotype``."""
+    from auto_dynamic_deeplab_torch.kernels.cell_ops import dag_launches
+    from auto_dynamic_deeplab_torch.models.cell import as_genotype_rows, edge_op_assignment
+    from auto_dynamic_deeplab_torch.nas import NETWORK_ARCH
+
+    assignment = edge_op_assignment(as_genotype_rows(genotype))
+    path = NETWORK_ARCH[2]["path"]
+    total = Counter()
+    for i in cells:
+        total += dag_launches(assignment, 5, CELL_SHAPES[path[i] - 1][0], dtype)
+    return total
 
 
 # ------------------------------------------------------------------ phases
@@ -205,14 +302,138 @@ def phase_k2(ctx):
     emit({"phase": "k2_entropy_argmax", "checks": rows})
 
 
-def _flagship(dtype=None, seed=0):
+def _measure(fn, ref, tol, what, lib=None):
+    """Check ``fn`` (a kernel) against ``ref`` (its plain version) on the
+    card, relative to max|ref|, then time both (and ``lib``, a yardstick)."""
+    with torch.inference_mode():
+        out, want = fn(), ref()
+        torch.cuda.synchronize()
+        abs_err = (out.float() - want.float()).abs().max().item()
+        ref_max = want.float().abs().max().item()
+        rel = abs_err / ref_max if ref_max > 0 else float("inf")  # two zero outputs prove nothing
+        if not rel <= tol:
+            raise AssertionError(f"{what}: relative error {rel} > {tol} (max|ref| {ref_max})")
+        row = {"max_abs_err": abs_err, "max_rel_err": rel, "tol_rel": tol, "max_abs_ref": ref_max,
+               "ms": cuda_ms(fn, runs=10), "plain_ms": cuda_ms(ref, runs=10),
+               "library_ms": None if lib is None else cuda_ms(lib, runs=10)}
+    return row
+
+
+def phase_cells(ctx):
+    import torch.nn.functional as F
+
+    from auto_dynamic_deeplab_torch.kernels import cell_ops as co
+    from auto_dynamic_deeplab_torch.ops.primitives import OPS
+    from auto_dynamic_deeplab_torch.utils.initialize import init_params, randomize_bn
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def op(name, c, seed):
+        g = torch.Generator().manual_seed(seed)
+        return randomize_bn(init_params(OPS[name](c, 1), g), g).cuda().eval()
+
+    def state(c, h, w, dtype, seed):
+        g = torch.Generator().manual_seed(seed)
+        return torch.randn(1, h, w, c, generator=g).cuda().to(dtype).permute(0, 3, 1, 2)
+
+    rows, routes, keyed = [], {}, {}
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        dname = str(dtype).split(".")[-1]
+        for c, h, w in CELL_SHAPES:
+            xs = [state(c, h, w, dtype, seed) for seed in (0, 1)]
+            for bi, names in enumerate(CELL_BLOCKS):
+                route = co.block_route(names, c, dtype)
+                routes[f"{dname} C={c} {'+'.join(names)}"] = list(route)
+                if route != ("block_stage",):
+                    continue
+                edges = [(xs[i], nm, co.edge_weights(op(nm, c, 10 * bi + i), nm, dtype)
+                          if nm != "skip_connect" else None) for i, nm in enumerate(names)]
+                row = _measure(lambda: co.block_stage(edges), lambda: co.block_stage_reference(edges), tol,
+                               f"K3 {dname} C={c} {names}")
+                row["bound_ms"], row["bound_by"] = cell_bound(names, c, h, w, len(names), dtype)
+                row.update(kernel="block_stage", dtype=dname, shape=[c, h, w], edges=list(names),
+                           tile=list(co.plan_block(names, c, dtype).tile))
+                rows.append(row)
+            for ni, name in enumerate(("sep_conv_3x3", "sep_conv_5x5", "dil_conv_3x3", "dil_conv_5x5")):
+                x, k = xs[0], int(name[-1])
+                wts = co.edge_weights(op(name, c, 100 + ni), name, dtype)
+                checks = []
+                if name.startswith("dil"):
+                    qd = wts.q[:, :, :c].reshape(k, k, c, c).permute(3, 2, 0, 1).contiguous()
+                    bd = wts.bias[:c].to(dtype)
+                    lib = lambda: F.conv2d(F.relu(x), qd, bd, dilation=2, padding=2 * (k // 2))  # noqa: E731
+                    checks.append(("dense_stage", co.plan_dense_stage(name, c, dtype),
+                                   lambda: co.dense_stage(x, name, wts),
+                                   lambda: co.dense_stage_reference(x, wts), lib,
+                                   cell_bound([name], c, h, w, 1, dtype)))
+                else:
+                    mid = co.sep_stage_reference(x, wts[0], True, True)
+                    checks += [
+                        ("sep_fused", co.plan_sep_fused(name, c, dtype), lambda: co.sep_fused(x, name, wts),
+                         lambda: co.sep_fused_reference(x, *wts), None,
+                         cell_bound([name], c, h, w, 1, dtype)),
+                        ("sep_stage", co.plan_sep_stage(name, c, dtype),
+                         lambda: co.sep_stage(x, name, wts[0], True, True),
+                         lambda: co.sep_stage_reference(x, wts[0], True, True), None,
+                         stage_bound(k, c, h, w, dtype)),
+                        ("sep_stage", co.plan_sep_stage(name, c, dtype),
+                         lambda: co.sep_stage(mid, name, wts[1], False, False),
+                         lambda: co.sep_stage_reference(mid, wts[1], False, False), None,
+                         stage_bound(k, c, h, w, dtype)),
+                    ]
+                for kernel, plan, fn, ref, lib, (bms, bby) in checks:
+                    if plan is None:
+                        routes[f"{dname} C={c} {name} {kernel}"] = "no tile fits"
+                        continue
+                    row = _measure(fn, ref, tol, f"{kernel} {dname} C={c} {name}", lib)
+                    row.update(kernel=kernel, dtype=dname, shape=[c, h, w], op=name, tile=list(plan.tile),
+                               bound_ms=bms, bound_by=bby)
+                    rows.append(row)
+    for row in rows:
+        emit({"phase": "cell_kernels", **row})
+    emit({"phase": "cell_routes", "routes": routes})
+
+    # summary rows, in the dtype of the main path (fp32) with bf16 beside
+    # it: K3 the widest level-1 block; K4 the mixed genotype's level-1 sep3;
+    # K5 and K6 the flagship's level-3 per-op sep5 (stage 1) and dil5
+    def pick(kernel, c, dname, **match):
+        for row in rows:
+            if row["kernel"] == kernel and row["shape"][0] == c and row["dtype"] == dname and all(
+                    row.get(k) == v for k, v in match.items()):
+                return row
+        raise AssertionError(f"no {kernel} row at C={c} {dname} {match}")
+
+    for dname in ("float32", "bfloat16"):
+        keyed.setdefault("block_stage", {})[dname] = pick("block_stage", 40, dname,
+                                                          edges=["dil_conv_5x5", "sep_conv_5x5"])
+        keyed.setdefault("sep_fused", {})[dname] = pick("sep_fused", 40, dname, op="sep_conv_3x3")
+        keyed.setdefault("sep_stage", {})[dname] = pick("sep_stage", 160, dname, op="sep_conv_5x5")
+        keyed.setdefault("dense_stage", {})[dname] = pick("dense_stage", 160, dname, op="dil_conv_5x5")
+    ctx["cells"] = keyed
+    for dtype in (torch.float32, torch.bfloat16):
+        flops, nbytes = dag_totals(_flagship_genotype(), dtype)
+        ms, by = bound(flops, nbytes, H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS)
+        emit({"phase": "flagship_dag_bound", "dtype": str(dtype).split(".")[-1], "cells": 12,
+              "gflop": flops / 1e9, "gbytes": nbytes / 1e9, "bound_ms": ms, "bound_by": by})
+
+
+def _flagship_genotype():
+    from auto_dynamic_deeplab_torch.nas import AUTODEEPLAB_GENOTYPE
+
+    return AUTODEEPLAB_GENOTYPE
+
+
+def _flagship(dtype=None, seed=0, flat_eval=False):
+    """The flagship ADD with seeded weights; the same seed gives the same
+    weights with either cell execution."""
     from auto_dynamic_deeplab_torch.models import ADD
     from auto_dynamic_deeplab_torch.nas import AUTODEEPLAB_GENOTYPE, NETWORK_ARCH
     from auto_dynamic_deeplab_torch.utils.initialize import init_params, randomize_bn
 
     cfg = NETWORK_ARCH[2]
     model = ADD(cfg["path"], cfg["C_index"], AUTODEEPLAB_GENOTYPE, 19, F=20, B=5,
-                low_level_layer=cfg["low_level_layer"], dtype=dtype)
+                low_level_layer=cfg["low_level_layer"], dtype=dtype, flat_eval=flat_eval)
     g = torch.Generator().manual_seed(seed)
     return randomize_bn(init_params(model, g), g).eval()
 
@@ -224,29 +445,76 @@ def phase_model(ctx):
 
     dev = resolve_device("cuda")  # TF32 off (runtime.ALLOW_TF32)
     cpu_model = _flagship()
-    gpu_model = copy.deepcopy(cpu_model).to(dev)
     x = torch.randn(1, 129, 257, 3, generator=torch.Generator().manual_seed(2))
     with torch.inference_mode():
         refs = cpu_model(x, class_leading=True)
-        outs = gpu_model(x.to(dev), class_leading=True)
-    rows = []
-    for o, r in zip(outs, refs):
-        o = o.float().cpu()
-        err = (o - r).abs().max().item()
-        tol = 1e-3 * r.abs().max().item()
-        if not (torch.isfinite(o).all() and err <= tol):
-            raise AssertionError(f"flagship logits on the card differ from the CPU: {err} > {tol}")
-        rows.append({"shape": list(o.shape), "max_abs_err": err, "tol": tol})
-    if not outs[0].is_contiguous():
-        raise AssertionError("class-leading logits should be (N, C, H, W)-contiguous for K2")
-    emit({"phase": "flagship_fp32_card_vs_cpu", "hw": [129, 257], "exits": rows})
+    for cell_exec, gpu_model in (("xla", copy.deepcopy(cpu_model).to(dev)),
+                                 ("flat", _flagship(flat_eval=True).to(dev))):
+        fns = _cell_fns()
+        for f in fns.values():
+            f.launches = 0
+        with torch.inference_mode():
+            outs = gpu_model(x.to(dev), class_leading=True)
+        rows = []
+        for o, r in zip(outs, refs):
+            o = o.float().cpu()
+            err = (o - r).abs().max().item()
+            tol = 1e-3 * r.abs().max().item()
+            if not (torch.isfinite(o).all() and err <= tol):
+                raise AssertionError(f"{cell_exec} flagship logits on the card differ from the CPU: "
+                                     f"{err} > {tol}")
+            rows.append({"shape": list(o.shape), "max_abs_err": err, "tol": tol})
+        if not outs[0].is_contiguous():
+            raise AssertionError("class-leading logits should be (N, C, H, W)-contiguous for K2")
+        launches = {name: f.launches for name, f in fns.items()}
+        if cell_exec == "flat" and launches["block_stage"] == 0:
+            raise AssertionError(f"the flat flagship launched no block kernel: {launches}")
+        emit({"phase": "flagship_fp32_card_vs_cpu", "cell_exec": cell_exec, "hw": [129, 257],
+              "exits": rows, "cell_launches": launches})
+
+
+def _check_run(name, cell_exec, stats, counts, n_img, genotype):
+    """The launches of one cli.evaluate run against what it must show."""
+    k1, k2 = counts["fused_stems"], counts["entropy_argmax_triton"]
+    if k1 < n_img:
+        raise AssertionError(f"{name} {cell_exec}: K1 launched {k1} times for {n_img} images")
+    if name == "static":
+        if k2 < 2 * n_img:
+            raise AssertionError(f"static {cell_exec}: K2 launched {k2} times, want >= {2 * n_img}")
+        if not all(0.0 <= m <= 1.0 for m in stats["miou"]):
+            raise AssertionError(f"static mIoU out of range: {stats['miou']}")
+    else:
+        if not (0.0 <= stats["miou"] <= 1.0 and stats["mean_latency_s"] > 0):
+            raise AssertionError(f"{name} {cell_exec}: bad stats {stats}")
+        if name.startswith("dynamic_entropy") and k2 < n_img:
+            raise AssertionError(f"{name} {cell_exec}: K2 launched {k2} times for {n_img} images")
+        want = {"dynamic_entropy_thr0": [0, n_img], "dynamic_entropy_thr1.01": [n_img, 0]}
+        if name in want and stats["exit_histogram"] != want[name]:
+            raise AssertionError(f"{name} {cell_exec}: exit histogram {stats['exit_histogram']}")
+    cells = {k: counts[k] for k in CELL_KERNELS}
+    if cell_exec == "xla":
+        if any(cells.values()):
+            raise AssertionError(f"{name}: the xla path launched cell kernels {cells}")
+        return
+    # per image: cells 0-5 when it exits at exit 0, all 12 at full depth;
+    # a dynamic run's warm-up runs every cell once; validate runs all 12
+    early = expected_cell_launches(genotype, torch.float32, range(6))
+    full = expected_cell_launches(genotype, torch.float32, range(12))
+    if name == "static":
+        want = Counter({k: n_img * v for k, v in full.items()})
+    else:
+        hist = stats["exit_histogram"]
+        want = Counter({k: v * (1 + hist[1]) for k, v in full.items()})
+        want.update({k: v * hist[0] for k, v in early.items()})
+    want = {k: want.get(k, 0) for k in CELL_KERNELS}
+    if cells != want:
+        raise AssertionError(f"{name} flat: cell kernel launches {cells}, the routes predict {want}")
 
 
 def phase_main_path(ctx):
     from auto_dynamic_deeplab_torch.cli import evaluate
-    from auto_dynamic_deeplab_torch.kernels.confidence import entropy_argmax_triton
-    from auto_dynamic_deeplab_torch.kernels.stems import fused_stems
 
+    kernels = _all_kernels()
     base = ["--dataset", "synthetic", "--synthetic-crop", str(FULL_HW[0]), str(FULL_HW[1]),
             "--synthetic-length", "32", "--workers", "4"]
     runs = [
@@ -255,37 +523,37 @@ def phase_main_path(ctx):
         ("dynamic_entropy_thr1.01", ["--dynamic", "--confidence", "entropy", "--threshold", "1.01"]),
         ("dynamic_edm", ["--dynamic", "--confidence", "edm"]),
     ]
-    fused_stems.launches = 0
-    entropy_argmax_triton.launches = 0
-    total = {"fused_stems": 0, "entropy_argmax_triton": 0}
-    for name, extra in runs:
-        k1_0, k2_0 = fused_stems.launches, entropy_argmax_triton.launches
-        stats = evaluate.main(base + extra)
-        k1 = fused_stems.launches - k1_0
-        k2 = entropy_argmax_triton.launches - k2_0
-        n_img = stats.get("n_images", 8)
-        if k1 < n_img:
-            raise AssertionError(f"{name}: K1 launched {k1} times for {n_img} images")
-        if name == "static":
-            if k2 < 2 * n_img:
-                raise AssertionError(f"static: K2 launched {k2} times, want >= {2 * n_img}")
-            if not all(0.0 <= m <= 1.0 for m in stats["miou"]):
-                raise AssertionError(f"static mIoU out of range: {stats['miou']}")
-        else:
-            if not (0.0 <= stats["miou"] <= 1.0 and stats["mean_latency_s"] > 0):
-                raise AssertionError(f"{name}: bad stats {stats}")
-            if name.startswith("dynamic_entropy") and k2 < n_img:
-                raise AssertionError(f"{name}: K2 launched {k2} times for {n_img} images")
-            want = {"dynamic_entropy_thr0": [0, n_img], "dynamic_entropy_thr1.01": [n_img, 0]}
-            if name in want and stats["exit_histogram"] != want[name]:
-                raise AssertionError(f"{name}: exit histogram {stats['exit_histogram']}")
-        emit({"phase": "main_path", "run": name, "stats": stats,
-              "launches": {"fused_stems": k1, "entropy_argmax_triton": k2}})
-        total["fused_stems"] += k1
-        total["entropy_argmax_triton"] += k2
-    if fused_stems.launches == 0 or entropy_argmax_triton.launches == 0:
-        raise AssertionError(f"a kernel of the main path never launched: {total}")
-    ctx["launches"] = total
+    total = Counter()
+
+    def drive(argv):
+        for f in kernels.values():
+            f.launches = 0
+        stats = evaluate.main(argv)
+        return stats, {name: f.launches for name, f in kernels.items()}
+
+    for cell_exec in ("xla", "flat"):
+        for name, extra in runs:
+            stats, counts = drive(base + ["--cell-exec", cell_exec] + extra)
+            n_img = stats.get("n_images", 8)  # static: the 8-image val set
+            _check_run(name, cell_exec, stats, counts, n_img, _flagship_genotype())
+            emit({"phase": "main_path", "cell_exec": cell_exec, "run": name, "stats": stats,
+                  "launches": counts})
+            total.update(counts)
+    with tempfile.TemporaryDirectory() as tmp:
+        geno = Path(tmp) / "mixed_genotype.npy"
+        np.save(geno, np.array(MIXED_GENOTYPE, dtype=np.int64))
+        stats, counts = drive(base + ["--cell-exec", "flat", "--genotype", str(geno)])
+    _check_run("static", "flat", stats, counts, 8, MIXED_GENOTYPE)
+    for name in ("sep_fused", "dense_stage"):
+        if counts[name] == 0:
+            raise AssertionError(f"the mixed genotype run launched no {name}: {counts}")
+    emit({"phase": "main_path", "cell_exec": "flat", "run": "static_mixed_genotype",
+          "genotype": MIXED_GENOTYPE, "stats": stats, "launches": counts})
+    total.update(counts)
+    missing = [name for name in kernels if total[name] == 0]
+    if missing:
+        raise AssertionError(f"kernels of the main paths never launched: {missing} ({dict(total)})")
+    ctx["launches"] = dict(total)
 
 
 def phase_bench(ctx):
@@ -293,31 +561,44 @@ def phase_bench(ctx):
     from auto_dynamic_deeplab_torch.train.dynamic import DynamicInferenceEngine
 
     dev = resolve_device("cuda")
-    model = _flagship(torch.bfloat16).to(dev)
-    engine = DynamicInferenceEngine(model, num_classes=19)
     shape = (1, *FULL_HW, 3)
-    engine.warmup(shape, "entropy", 0.0)
-    g = torch.Generator(device=dev).manual_seed(3)
-    out = {}
-    for name, thr, want_exit in (("early_exit", 1.01, 0), ("full_depth", 0.0, 1)):
-        lat = []
-        for _ in range(3 + 20):
-            x = torch.randn(shape, generator=g, device=dev)
-            logits, k, dt, _ = engine.infer(x, threshold=thr, confidence="entropy")
-            if k != want_exit or not torch.isfinite(logits).all():
-                raise AssertionError(f"{name}: exit {k}, finite={bool(torch.isfinite(logits).all())}")
-            lat.append(dt * 1e3)
-        lat = lat[3:]
-        out[name] = {"p50_ms": statistics.median(lat), "mean_ms": statistics.fmean(lat),
-                     "min_ms": min(lat), "max_ms": max(lat), "n": len(lat)}
-    torch.cuda.synchronize()
-    emit({"phase": "bench_bf16_engine", "hw": list(FULL_HW), "batch": 1, "confidence": "entropy",
-          "latency": out, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-          "nvidia_smi": ctx["smi"]})
+    fns = _cell_fns()
+    for cell_exec in ("xla", "flat"):
+        model = _flagship(torch.bfloat16, flat_eval=cell_exec == "flat").to(dev)
+        engine = DynamicInferenceEngine(model, num_classes=19)
+        engine.warmup(shape, "entropy", 0.0)
+        g = torch.Generator(device=dev).manual_seed(3)
+        out = {}
+        for name, thr, want_exit in (("early_exit", 1.01, 0), ("full_depth", 0.0, 1)):
+            lat = []
+            for f in fns.values():
+                f.launches = 0
+            for _ in range(3 + 20):
+                x = torch.randn(shape, generator=g, device=dev)
+                logits, k, dt, _ = engine.infer(x, threshold=thr, confidence="entropy")
+                if k != want_exit or not torch.isfinite(logits).all():
+                    raise AssertionError(f"{cell_exec} {name}: exit {k}, "
+                                         f"finite={bool(torch.isfinite(logits).all())}")
+                lat.append(dt * 1e3)
+            per_image = {n: f.launches / 23 for n, f in fns.items()}
+            cells = range(6 if want_exit == 0 else 12)
+            want = expected_cell_launches(_flagship_genotype(), torch.bfloat16, cells)
+            if cell_exec == "flat" and per_image != {n: float(want.get(n, 0)) for n in fns}:
+                raise AssertionError(f"flat {name}: cell launches per image {per_image}, "
+                                     f"routes predict {dict(want)}")
+            lat = lat[3:]
+            out[name] = {"p50_ms": statistics.median(lat), "mean_ms": statistics.fmean(lat),
+                         "min_ms": min(lat), "max_ms": max(lat), "n": len(lat),
+                         "cell_launches_per_image": per_image}
+        torch.cuda.synchronize()
+        emit({"phase": "bench_bf16_engine", "cell_exec": cell_exec, "hw": list(FULL_HW), "batch": 1,
+              "confidence": "entropy", "latency": out,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "nvidia_smi": ctx["smi"]})
+        del engine, model
 
 
 def phase_kernels(ctx):
-    k1, k2 = ctx["k1"], ctx["k2"]
+    k1, k2, cells = ctx["k1"], ctx["k2"], ctx["cells"]
     launches = ctx.get("launches", {})
 
     def entry(name, route, source, replaces, main, other):
@@ -325,11 +606,14 @@ def phase_kernels(ctx):
             "name": name, "route": route, "source": source, "replaces": replaces,
             "launches": launches.get(name, 0), "max_abs_err": main["max_abs_err"],
             "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-            "bound_by": main["bound_by"], "library_ms": None, "dtype": main["dtype"],
-            "bf16_ms": other["ms"], "bf16_plain_ms": other["plain_ms"],
+            "bound_by": main["bound_by"], "library_ms": main.get("library_ms"), "dtype": main["dtype"],
+            "shape": main.get("shape"), "bf16_ms": other["ms"], "bf16_plain_ms": other["plain_ms"],
             "bf16_bound_ms": other["bound_ms"], "bf16_max_abs_err": other["max_abs_err"],
+            "bf16_library_ms": other.get("library_ms"),
         }
 
+    cu = "auto_dynamic_deeplab_torch/csrc/cell_ops.cu"
+    tpu = "auto_dynamic_deeplab_tpu/kernels/cell_ops.py"
     # the main path (cli.evaluate) runs the fp32 policy; bf16 is bench.py's
     print(json.dumps({"kernels": [
         entry("fused_stems", "cuda", "auto_dynamic_deeplab_torch/csrc/stems.cu",
@@ -337,18 +621,26 @@ def phase_kernels(ctx):
         entry("entropy_argmax_triton", "triton",
               "auto_dynamic_deeplab_torch/kernels/_entropy_argmax_triton.py",
               "auto_dynamic_deeplab_tpu/kernels/confidence.py:47", k2["float32"], k2["bfloat16"]),
+        entry("block_stage", "cuda", cu, f"{tpu}:765", cells["block_stage"]["float32"],
+              cells["block_stage"]["bfloat16"]),
+        entry("sep_fused", "cuda", cu, f"{tpu}:385", cells["sep_fused"]["float32"],
+              cells["sep_fused"]["bfloat16"]),
+        entry("sep_stage", "cuda", cu, f"{tpu}:466", cells["sep_stage"]["float32"],
+              cells["sep_stage"]["bfloat16"]),
+        entry("dense_stage", "cuda", cu, f"{tpu}:495", cells["dense_stage"]["float32"],
+              cells["dense_stage"]["bfloat16"]),
     ]}), flush=True)
 
 
 PHASES = {
-    1: phase_device, 2: phase_k1, 3: phase_k2, 4: phase_model,
-    5: phase_main_path, 6: phase_bench, 7: phase_kernels,
+    1: phase_device, 2: phase_k1, 3: phase_k2, 4: phase_cells, 5: phase_model,
+    6: phase_main_path, 7: phase_bench, 8: phase_kernels,
 }
 
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--phases", default="1,2,3,4,5,6,7")
+    p.add_argument("--phases", default="1,2,3,4,5,6,7,8")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: no GPU", file=sys.stderr)
@@ -357,7 +649,7 @@ def main(argv=None):
     ctx = {}
     t0 = time.perf_counter()
     for k in phases:
-        if k == 7:
+        if k == 8:
             emit({"phase": "elapsed", "seconds": time.perf_counter() - t0})
         PHASES[k](ctx)
     print(ctx.get("smi") or nvidia_smi_line(), flush=True)

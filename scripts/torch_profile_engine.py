@@ -7,7 +7,11 @@ JSON line per mode: host wall time, the sum and count of device kernels,
 the device busy share (kernel time / wall time, kernels of one stream do
 not overlap) and the kernels with the most device time.
 
-    python scripts/torch_profile_engine.py --dtype bf16
+    python scripts/torch_profile_engine.py --dtype bf16 [--cell-exec flat]
+
+``--cell-exec flat`` runs every cell's DAG through the cell kernels K3-K6
+(as ``cli.evaluate --cell-exec flat`` does); the default is the op-by-op
+cells.
 """
 from __future__ import annotations
 
@@ -34,12 +38,14 @@ def main(argv=None):
     p.add_argument("--dtype", default="bf16", choices=["bf16", "fp32"])
     p.add_argument("--hw", type=int, nargs=2, default=(1025, 2049))
     p.add_argument("--top", type=int, default=12)
+    p.add_argument("--cell-exec", default="xla", choices=["xla", "flat"])
     args = p.parse_args(argv)
     dev = resolve_device("cuda")
     dtype = torch.bfloat16 if args.dtype == "bf16" else None
     cfg = NETWORK_ARCH[2]
     model = ADD(cfg["path"], cfg["C_index"], AUTODEEPLAB_GENOTYPE, 19, F=20, B=5,
-                low_level_layer=cfg["low_level_layer"], dtype=dtype)
+                low_level_layer=cfg["low_level_layer"], dtype=dtype,
+                flat_eval=args.cell_exec == "flat")
     model = init_params(model, torch.Generator().manual_seed(0)).to(dev).eval()
     engine = DynamicInferenceEngine(model, num_classes=19)
     shape = (1, *args.hw, 3)
@@ -62,7 +68,8 @@ def main(argv=None):
         device_ms = sum(v[0] for v in by_name.values())
         top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[: args.top]
         print(json.dumps({
-            "mode": mode, "exit_index": k, "dtype": args.dtype, "hw": list(args.hw),
+            "mode": mode, "exit_index": k, "dtype": args.dtype, "cell_exec": args.cell_exec,
+            "hw": list(args.hw),
             "wall_ms_profiled": wall_ms, "device_kernel_ms": device_ms,
             "kernel_launches": len(kernels),
             "device_busy_share": device_ms / wall_ms if wall_ms > 0 else None,

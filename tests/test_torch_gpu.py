@@ -1,4 +1,4 @@
-"""K1 and K2 against their plain versions on the card.
+"""K1-K6 against their plain versions on the card.
 
 This file imports neither jax nor the JAX package, so it also runs where
 only the port's dependencies are installed:
@@ -8,15 +8,24 @@ only the port's dependencies are installed:
 (``--noconftest`` skips tests/conftest.py, which configures jax). Without a
 GPU the kernel tests skip. Tolerances: K1 relative max error ≤ 1e-4 in
 fp32 (TF32 off) and ≤ 2e-2 in bf16 (bf16 rounds at other points than
-cuDNN); K2 entropy |Δ| ≤ 1e-5 in fp32 and ≤ 1e-4 in bf16, argmax exact.
+cuDNN); K2 entropy |Δ| ≤ 1e-5 in fp32 and ≤ 1e-4 in bf16, argmax exact;
+K3-K6 and the flat DAG relative max error ≤ 1e-4 in fp32 (TF32 off) and
+≤ 2e-2 in bf16 (a sum taken in another order can move a bf16 rounding of
+the depthwise result or the mid by one unit).
 """
+import ctypes
+
 import pytest
 import torch
 
 from auto_dynamic_deeplab_torch.kernels import _build
+from auto_dynamic_deeplab_torch.kernels import cell_ops as pt_cell
 from auto_dynamic_deeplab_torch.kernels import confidence as pt_conf
 from auto_dynamic_deeplab_torch.kernels import stems as pt_stems
+from auto_dynamic_deeplab_torch.models.cell import as_genotype_rows, edge_op_assignment
 from auto_dynamic_deeplab_torch.models.decoded import _Stems
+from auto_dynamic_deeplab_torch.nas import AUTODEEPLAB_GENOTYPE
+from auto_dynamic_deeplab_torch.ops.primitives import OPS
 from auto_dynamic_deeplab_torch.utils.initialize import init_params, randomize_bn
 
 needs_gpu = pytest.mark.skipif(
@@ -26,7 +35,8 @@ needs_gpu = pytest.mark.skipif(
 
 def _rel_err(a: torch.Tensor, ref: torch.Tensor) -> float:
     a, ref = a.double().cpu(), ref.double().cpu()
-    return ((a - ref).abs().max() / ref.abs().max().clamp_min(1e-12)).item()
+    assert ref.abs().max() > 0 and torch.isfinite(a).all()  # two zero outputs prove nothing
+    return ((a - ref).abs().max() / ref.abs().max()).item()
 
 
 @needs_gpu
@@ -70,6 +80,145 @@ def test_k2_matches_plain_on_gpu(layout, dtype):
     tol = 1e-5 if dtype == torch.float32 else 1e-4
     assert (ent - ent_r).abs().max().item() <= tol
     assert torch.equal(arg, arg_r)
+
+
+def _state(n, c, hw, dtype, seed, width=None):
+    """A seeded channels_last state; with ``width`` > c, a channel slice of
+    a wider buffer (pixel stride ``width``), as the cell's concat hands out."""
+    g = torch.Generator().manual_seed(seed)
+    buf = torch.randn(n, *hw, width or c, generator=g).cuda().to(dtype)
+    return buf[..., :c].permute(0, 3, 1, 2)
+
+
+def _op(name, c, seed):
+    g = torch.Generator().manual_seed(seed)
+    return randomize_bn(init_params(OPS[name](c, 1), g), g).cuda().eval()
+
+
+def _tol(dtype):
+    return 1e-4 if dtype == torch.float32 else 2e-2
+
+
+# (C, (H, W), N, source pixel stride): odd sizes, C not a multiple of 8,
+# a strided source, and a width where tiles run past the image on both axes
+CELL_SHAPES = [(12, (13, 17), 2, None), (40, (21, 35), 1, 56), (5, (9, 7), 1, None)]
+
+
+@needs_gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", CELL_SHAPES, ids=str)
+@pytest.mark.parametrize("names", [
+    ("dil_conv_5x5", "sep_conv_3x3"), ("skip_connect", "sep_conv_5x5"),
+    ("sep_conv_3x3", "dil_conv_3x3"), ("dil_conv_3x3",),
+])
+def test_k3_block_matches_plain_on_gpu(names, shape, dtype):
+    torch.backends.cudnn.allow_tf32 = False
+    c, hw, n, width = shape
+    edges = []
+    for i, name in enumerate(names):
+        x = _state(n, c, hw, dtype, seed=i, width=width)
+        w = pt_cell.edge_weights(_op(name, c, 10 + i), name, dtype) if name != "skip_connect" else None
+        edges.append((x, name, w))
+    out = torch.zeros(n, *hw, 2 * c, device="cuda", dtype=dtype).permute(0, 3, 1, 2)
+    before = pt_cell.block_stage.launches
+    with torch.inference_mode():
+        got = pt_cell.block_stage(edges, out=out[:, c:])
+        ref = pt_cell.block_stage_reference(edges)
+    torch.cuda.synchronize()
+    assert pt_cell.block_stage.launches == before + 1
+    assert got.data_ptr() == out[:, c:].data_ptr() and torch.all(out[:, :c] == 0)
+    assert _rel_err(got, ref) <= _tol(dtype)
+
+
+@needs_gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", CELL_SHAPES, ids=str)
+@pytest.mark.parametrize("name", ["sep_conv_3x3", "sep_conv_5x5", "dil_conv_3x3", "dil_conv_5x5"])
+def test_k4_k5_k6_match_plain_on_gpu(name, shape, dtype):
+    torch.backends.cudnn.allow_tf32 = False
+    c, hw, n, width = shape
+    x = _state(n, c, hw, dtype, seed=3, width=width)
+    w = pt_cell.edge_weights(_op(name, c, 20), name, dtype)
+    with torch.inference_mode():
+        if name.startswith("dil"):
+            before = pt_cell.dense_stage.launches
+            got, ref = pt_cell.dense_stage(x, name, w), pt_cell.dense_stage_reference(x, w)
+            torch.cuda.synchronize()
+            assert pt_cell.dense_stage.launches == before + 1
+            assert _rel_err(got, ref) <= _tol(dtype)
+            return
+        before = pt_cell.sep_fused.launches
+        got, ref = pt_cell.sep_fused(x, name, w), pt_cell.sep_fused_reference(x, *w)
+        torch.cuda.synchronize()
+        assert pt_cell.sep_fused.launches == before + 1
+        assert _rel_err(got, ref) <= _tol(dtype)
+        before = pt_cell.sep_stage.launches
+        for in_relu, out_relu in ((True, True), (False, False), (True, False)):
+            got = pt_cell.sep_stage(x, name, w[0], in_relu, out_relu)
+            ref = pt_cell.sep_stage_reference(x, w[0], in_relu, out_relu)
+            torch.cuda.synchronize()
+            assert _rel_err(got, ref) <= _tol(dtype), (in_relu, out_relu)
+        assert pt_cell.sep_stage.launches == before + 3
+
+
+@needs_gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("genotype", [
+    AUTODEEPLAB_GENOTYPE,
+    [[0, 1], [1, 4], [2, 3], [3, 7], [5, 2], [8, 6], [11, 0], [13, 5], [18, 3], [19, 4]],
+], ids=["flagship", "mixed"])
+def test_run_dag_on_gpu_matches_cpu(genotype, dtype):
+    """The DAG on the card (kernels) against the same DAG on the CPU (plain
+    versions), with the launches the routes predict. C=160 sends the
+    flagship's (sep5, sep5) and (dil5, sep5) blocks per-op in fp32."""
+    torch.backends.cudnn.allow_tf32 = False
+    c, hw = 160, (11, 19)
+    assignment = edge_op_assignment(as_genotype_rows(genotype))
+    ops = [_op(pt_cell.PRIMITIVES[o], c, 30 + k) for k, (_, o) in enumerate(assignment)]
+    s0, s1 = _state(1, c, hw, dtype, seed=4), _state(1, c, hw, dtype, seed=5)
+    fns = [pt_cell.block_stage, pt_cell.sep_fused, pt_cell.sep_stage, pt_cell.dense_stage]
+    before = {f.__name__: f.launches for f in fns}
+    with torch.inference_mode():
+        got = pt_cell.run_dag(s0, s1, assignment, 5, ops)
+        torch.cuda.synchronize()
+        launched = {f.__name__: f.launches - before[f.__name__] for f in fns}
+        ref = pt_cell.run_dag(s0.cpu(), s1.cpu(), assignment, 5, [op.cpu() for op in ops])
+    want = pt_cell.dag_launches(assignment, 5, c, dtype)
+    assert launched == {name: want.get(name, 0) for name in launched}
+    assert got.shape == ref.shape == (1, 5 * c, *hw)
+    assert _rel_err(got, ref) <= _tol(dtype)
+
+
+def test_cell_plans_match_the_kernels_carveup():
+    """The host's plans grant exactly the shared memory each kernel carves,
+    and the ctypes argument structure has the C structure's size."""
+    if not torch.cuda.is_available():
+        pytest.skip("builds csrc/cell_ops.cu with nvcc: needs the GPU machine")
+    lib = pt_cell.library()
+    assert lib.add_cell_args_size() == ctypes.sizeof(pt_cell._Args)
+    for dtype in (torch.float32, torch.bfloat16):
+        for c in (5, 40, 80, 160, 320):
+            a = pt_cell._Args()
+            a.C, a.is_bf16 = c, int(dtype == torch.bfloat16)
+            blocks = (("dil_conv_5x5", "sep_conv_5x5"), ("skip_connect", "sep_conv_3x3"), ("dil_conv_3x3",))
+            for names in blocks:
+                plan = pt_cell.plan_block(names, c, dtype)
+                if plan is None:
+                    continue
+                a.n_edges, (a.th, a.tw) = len(names), plan.tile
+                for e, name in zip(a.e, names):
+                    kind, e.k, e.dil = pt_cell.EDGE_KINDS[name]
+                    e.kind = pt_cell._KIND_CODE[kind]
+                assert lib.add_cell_smem_bytes(0, ctypes.byref(a)) == plan.smem, (names, c, dtype)
+            for which, plan_fn, name in ((1, pt_cell.plan_sep_fused, "sep_conv_5x5"),
+                                         (2, pt_cell.plan_sep_stage, "sep_conv_5x5"),
+                                         (3, pt_cell.plan_dense_stage, "dil_conv_5x5")):
+                plan = plan_fn(name, c, dtype)
+                if plan is None:
+                    continue
+                kind, a.e[0].k, a.e[0].dil = pt_cell.EDGE_KINDS[name]
+                a.e[0].kind, (a.th, a.tw) = pt_cell._KIND_CODE[kind], plan.tile
+                assert lib.add_cell_smem_bytes(which, ctypes.byref(a)) == plan.smem, (name, c, dtype)
 
 
 def test_library_name_tracks_source_and_flags(monkeypatch):
