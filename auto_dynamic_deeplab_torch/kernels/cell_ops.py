@@ -59,11 +59,20 @@ SMEM_LIMIT = 232448  # 227 KB: the most shared memory one block may have on Hopp
 # halo and may shrink further.
 RECOMPUTE_TILES = ((8, 16), (8, 8))
 STAGE_TILES = ((8, 16), (8, 8), (4, 8), (4, 4))
+# K6 (tensor-core implicit GEMM): one warp per 16 tile pixels, at most 4.
+# The tiles of 8 and 4 pixels leave part of the mma's 16 rows idle; they
+# are kept so that every width the CUDA-core K6 took still has a plan.
+DENSE_TILES = ((8, 8), (4, 8), (2, 8), (2, 4), (1, 4))
+DENSE_NS_MAX = 40  # output channels a block computes: 5 n8 fragments a warp
+SM_COUNT = 132     # the H100's SMs: K6's grid should have at least this many blocks
+SM_SMEM = 233472   # shared memory of one H100 SM (228 KB)
 
 
 class Plan(NamedTuple):
     tile: Tuple[int, int]
     smem: int
+    ns: int = 0  # K6: output channels a block computes (the N-slice)
+    ng: int = 1  # K6: warp groups that split the N-slice's fragments
 
 
 class SepStageWeights(NamedTuple):
@@ -82,12 +91,15 @@ class DenseWeights(NamedTuple):
     """One folded DilConv (dense_stage_weights, cell_ops.py:863): q
     (k*k, C, O8) the (O, k*k*C) conv weight with the BN scale folded in
     fp32, cast to the state dtype, output channels innermost and padded to
-    O8; bias (O8,) fp32."""
+    O8; bias (O8,) fp32. packed (k*k, O8, Cpad) holds the same values with
+    the input channels innermost, zero-padded to Cpad (``dense_cpad``): the
+    tensor cores' B operand, which K6 reads; K3 and the plain version read q."""
 
     q: torch.Tensor
     bias: torch.Tensor
     k: int
     dil: int
+    packed: torch.Tensor
 
 
 # --------------------------------------------------------------- plans
@@ -158,12 +170,68 @@ def plan_sep_stage(name: str, C: int, dtype: torch.dtype) -> Optional[Plan]:
     )
 
 
-def plan_dense_stage(name: str, C: int, dtype: torch.dtype) -> Optional[Plan]:
-    """K6's tile: input window with its dilated halo."""
+def dense_cpad(C: int, dtype: torch.dtype) -> int:
+    """K6's input channels, padded to one 32-byte mma depth step (16 bf16, 8 fp32)."""
+    q = 32 // _elem_bytes(dtype)
+    return -(-C // q) * q
+
+
+def _dense_smem(name: str, C: int, dtype: torch.dtype, th: int, tw: int, ns: int) -> int:
+    """The raw window with its dilated halo plus two stages of ns weight
+    rows, each row Cpad channels and 16 bytes of skew (csrc dense_smem)."""
+    _, k, dil = EDGE_KINDS[name]
+    eb, reach = _elem_bytes(dtype), dil * (k // 2)
+    return ((th + 2 * reach) * (tw + 2 * reach) + 2 * ns) * (dense_cpad(C, dtype) * eb + 16)
+
+
+def dense_blocks(plan: Plan, C: int, N: int, H: int, W: int) -> int:
+    """K6's grid: tiles x images x N-slices."""
+    th, tw = plan.tile
+    return -(-H // th) * -(-W // tw) * N * (-(-C // 8) * 8 // plan.ns)
+
+
+def _dense_resident(plan: Plan) -> int:
+    """K6 blocks of this plan one SM holds at once, by shared memory (228 KB
+    an SM, 1 KB of it reserved a block) and threads (2048 an SM)."""
+    threads = -(-plan.tile[0] * plan.tile[1] // 16) * plan.ng * 32
+    return max(1, min(SM_SMEM // (plan.smem + 1024), 2048 // threads))
+
+
+@functools.lru_cache(maxsize=None)  # pure, and called on every launch
+def plan_dense_stage(name: str, C: int, dtype: torch.dtype, hw: Optional[Tuple[int, int]] = None,
+                     N: int = 1) -> Optional[Plan]:
+    """K6's plan: tile, N-slice, warp groups and shared memory. Candidates
+    run from the largest tile and widest slice down (slices divide O8, so
+    the packed weights serve every plan); tiles of fewer than 16 pixels only
+    where no other fits. Without ``hw`` the first that fits. With (H, W)
+    and batch N, the one with the least modelled time: waves of resident
+    blocks times a block's work, taken as its slice plus a fixed cost of 32
+    channels (window, per-tap overhead; fitted on the card, PERF.md §6).
+    Two warp groups split the slice where fewer than 12 warps would be
+    resident on an SM (PERF.md §6: fp32 at C=160, and dil5 at C=80)."""
     if EDGE_KINDS.get(name, ("",))[0] != "dil":
         raise ValueError(f"{name} is not a DilConv")
-    eb = _elem_bytes(dtype)
-    return _first_fit(STAGE_TILES, lambda th, tw: _edge_bytes(name, C, eb, th, tw))
+    o8 = -(-C // 8) * 8
+    fits = [
+        Plan((th, tw), smem, ns)
+        for th, tw in DENSE_TILES
+        for ns in range(min(o8, DENSE_NS_MAX), 0, -8)
+        if o8 % ns == 0 and (smem := _dense_smem(name, C, dtype, th, tw, ns)) <= SMEM_LIMIT
+    ]
+    full = [p for p in fits if p.tile[0] * p.tile[1] % 16 == 0]
+    fits = full or fits
+    if not fits:
+        return None
+    if hw is None:
+        return fits[0]
+
+    def cost(p: Plan) -> int:
+        slots = SM_COUNT * _dense_resident(p)
+        return -(-dense_blocks(p, C, N, *hw) // slots) * (p.ns + 32)
+
+    best = min(fits, key=cost)  # the first of equals: larger tile, wider slice
+    warps = -(-best.tile[0] * best.tile[1] // 16) * _dense_resident(best)
+    return best._replace(ng=2) if best.ns >= 16 and warps < 12 else best
 
 
 # ------------------------------------------------------------- folding
@@ -188,8 +256,10 @@ def _fold_dense(conv, bn, dtype) -> DenseWeights:
     w = (conv.kernel.float() * s[:, None, None, None]).to(dtype)  # (O, C, k, k)
     o8 = -(-O // 8) * 8
     q = F.pad(w.permute(2, 3, 1, 0).reshape(k * k, C, O), (0, o8 - O))
+    packed = F.pad(w.permute(2, 3, 0, 1).reshape(k * k, O, C), (0, dense_cpad(C, dtype) - C, 0, o8 - O))
     return DenseWeights(
-        q=q.contiguous(), bias=F.pad(b.float(), (0, o8 - O)).contiguous(), k=k, dil=conv.dilation
+        q=q.contiguous(), bias=F.pad(b.float(), (0, o8 - O)).contiguous(), k=k, dil=conv.dilation,
+        packed=packed.contiguous(),
     )
 
 
@@ -286,7 +356,8 @@ class _Args(ctypes.Structure):
         ("out_relu", ctypes.c_int), ("is_bf16", ctypes.c_int), ("out", ctypes.c_void_p),
         ("out_img_stride", ctypes.c_longlong), ("out_ps", ctypes.c_int), ("N", ctypes.c_int),
         ("H", ctypes.c_int), ("W", ctypes.c_int), ("C", ctypes.c_int), ("O8", ctypes.c_int),
-        ("th", ctypes.c_int), ("tw", ctypes.c_int), ("smem", ctypes.c_int),
+        ("th", ctypes.c_int), ("tw", ctypes.c_int), ("smem", ctypes.c_int), ("ns", ctypes.c_int),
+        ("ng", ctypes.c_int),
     ]
 
 
@@ -362,11 +433,13 @@ def _fill_edge(e: _Edge, x: torch.Tensor, name: str, w, like: torch.Tensor, fn: 
             setattr(e, f"w{i}", st.pw.data_ptr())
             setattr(e, f"b{i}", st.bias.data_ptr())
     elif kind == "dil":
+        packed = (k * k, o8, dense_cpad(C, like.dtype))
         if (w.k, w.dil) != (k, dil) or tuple(w.q.shape) != (k * k, C, o8) or tuple(w.bias.shape) != (o8,) \
-                or (w.q.dtype, w.bias.dtype) != (like.dtype, f32):
+                or tuple(w.packed.shape) != packed or (w.q.dtype, w.packed.dtype, w.bias.dtype) != \
+                (like.dtype, like.dtype, f32):
             raise ValueError(f"{fn}: {name} weights do not fit C={C} {like.dtype}")
-        _check_weights((w.q, w.bias), like, fn)
-        e.w1, e.b1 = w.q.data_ptr(), w.bias.data_ptr()
+        _check_weights((w.q, w.bias, w.packed), like, fn)
+        e.w1, e.b1, e.w2 = w.q.data_ptr(), w.bias.data_ptr(), w.packed.data_ptr()
 
 
 def _launch(entry: str, like: torch.Tensor, edges, plan: Plan, out: torch.Tensor,
@@ -380,7 +453,7 @@ def _launch(entry: str, like: torch.Tensor, edges, plan: Plan, out: torch.Tensor
     a.out_img_stride, a.out_ps = _pixel_layout(out, like, f"{entry} output")
     a.out = out.data_ptr()
     a.N, a.H, a.W, a.C, a.O8 = N, H, W, C, -(-C // 8) * 8
-    (a.th, a.tw), a.smem = plan.tile, plan.smem
+    (a.th, a.tw), a.smem, a.ns, a.ng = plan.tile, plan.smem, plan.ns, plan.ng
     lib = library()
     rc = getattr(lib, _ENTRY[entry])(ctypes.byref(a), torch.cuda.current_stream(like.device).cuda_stream)
     if rc != 0:
@@ -453,7 +526,8 @@ def dense_stage(x: torch.Tensor, name: str, w: DenseWeights) -> torch.Tensor:
     if x.device.type == "cpu":
         return dense_stage_reference(x, w)
     _check_state(x, "dense_stage")
-    plan = plan_dense_stage(name, x.shape[1], x.dtype)
+    N, C, H, W = x.shape
+    plan = plan_dense_stage(name, C, x.dtype, (H, W), N)
     if plan is None:
         raise _no_plan("dense_stage", name, x.shape[1], x.dtype)
     out = _new_state(x)

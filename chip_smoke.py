@@ -14,7 +14,9 @@ Phases, each printing JSON lines and raising on failure:
      the flagship's DAG widths (C, H, W) = (40, 129, 257), (80, 65, 129),
      (160, 33, 65), fp32 (TF32 off) and bf16: every block of the flagship
      genotype, a skip+sep and a one-edge block, and each conv op through
-     K4, K5 (two passes) and K6, with the route each block takes;
+     K4, K5 (two passes) and K6, with the route each block takes; each K6
+     row also gives its grid (blocks), N-split, achieved TFLOP/s, and its
+     and cuDNN's device time by torch.profiler (without the host's share);
   5. the flagship ADD (C=2, F=20, B=5, 19 classes, seeded weights and BN
      statistics, fp32) per-exit logits on the card against the same model
      on the CPU at 129x257, with --cell-exec xla and flat;
@@ -92,6 +94,24 @@ def cuda_ms(fn, runs: int = 20, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_ms(fn, runs: int = 10) -> float:
+    """Mean device time of the kernels one call of ``fn`` launches, by
+    torch.profiler: unlike ``cuda_ms``, without the host's share of the call."""
+    fn()
+    torch.cuda.synchronize()
+    # a profiling session now and then records fewer kernels than were
+    # launched (one call each at least): such a session is run again
+    for _ in range(3):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if len(kernels) >= runs and len(kernels) % runs == 0:
+            return sum(e.time_range.elapsed_us() for e in kernels) / runs / 1e3
+    raise AssertionError(f"the profiler recorded {len(kernels)} kernels for {runs} calls, three times")
 
 
 def bound(flops: float, nbytes: float, peak_flops: float):
@@ -363,7 +383,7 @@ def phase_cells(ctx):
                     qd = wts.q[:, :, :c].reshape(k, k, c, c).permute(3, 2, 0, 1).contiguous()
                     bd = wts.bias[:c].to(dtype)
                     lib = lambda: F.conv2d(F.relu(x), qd, bd, dilation=2, padding=2 * (k // 2))  # noqa: E731
-                    checks.append(("dense_stage", co.plan_dense_stage(name, c, dtype),
+                    checks.append(("dense_stage", co.plan_dense_stage(name, c, dtype, (h, w), 1),
                                    lambda: co.dense_stage(x, name, wts),
                                    lambda: co.dense_stage_reference(x, wts), lib,
                                    cell_bound([name], c, h, w, 1, dtype)))
@@ -389,6 +409,13 @@ def phase_cells(ctx):
                     row = _measure(fn, ref, tol, f"{kernel} {dname} C={c} {name}", lib)
                     row.update(kernel=kernel, dtype=dname, shape=[c, h, w], op=name, tile=list(plan.tile),
                                bound_ms=bms, bound_by=bby)
+                    if kernel == "dense_stage":
+                        with torch.inference_mode():
+                            dev, lib_dev = device_ms(fn), device_ms(lib)
+                        gflop = h * w * _edge_flops(name, c) / 1e9
+                        row.update(blocks=co.dense_blocks(plan, c, 1, h, w), n_split=-(-c // 8) * 8 // plan.ns,
+                                   ns=plan.ns, ng=plan.ng, tflops=gflop / row["ms"], device_ms=dev,
+                                   device_tflops=gflop / dev, library_device_ms=lib_dev)
                     rows.append(row)
     for row in rows:
         emit({"phase": "cell_kernels", **row})

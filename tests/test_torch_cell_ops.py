@@ -215,7 +215,94 @@ def test_routes_at_flagship_widths(key):
         assert plan is None or plan.smem <= pt_cell.SMEM_LIMIT
     assert pt_cell.plan_sep_fused("sep_conv_5x5", 160, torch.float32) is None
     assert pt_cell.plan_sep_stage("sep_conv_5x5", 160, torch.float32).tile == (8, 8)
-    assert pt_cell.plan_dense_stage("dil_conv_5x5", 320, torch.float32).tile == (4, 4)
+    plan = pt_cell.plan_dense_stage("dil_conv_5x5", 320, torch.float32)
+    assert (plan.tile, plan.ns) == ((2, 8), 8) and plan.smem <= pt_cell.SMEM_LIMIT
+
+
+# ------------------------------------------------- K6 (tensor-core) host side
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("c", [5, 12, 40])
+def test_k6_packed_weights_unpack_exactly(c, dtype):
+    """K6's packed B operand (k*k, O8, Cpad) holds q and the folded conv
+    weight exactly, with zeros in the padded rows and channels."""
+    torch.manual_seed(c)
+    pm = PT_OPS["dil_conv_5x5"](c, 1)
+    with torch.no_grad():
+        for p in pm.parameters():
+            p.normal_()
+        pm.bn.mean.normal_()
+        pm.bn.var.uniform_(0.5, 2.0)
+    w = pt_cell.edge_weights(pm, "dil_conv_5x5", dtype)
+    o8, cpad = -(-c // 8) * 8, pt_cell.dense_cpad(c, dtype)
+    assert w.packed.shape == (25, o8, cpad) and w.packed.dtype == dtype and w.packed.is_contiguous()
+    assert cpad * torch.finfo(dtype).bits // 8 % 32 == 0
+    assert torch.equal(w.packed[:, :, :c].transpose(1, 2), w.q)
+    s, _ = pm.bn.folded()
+    conv = (pm.conv.kernel.float() * s[:, None, None, None]).to(dtype)  # (O, C, k, k)
+    assert torch.equal(w.packed[:, :c, :c].reshape(5, 5, c, c).permute(2, 3, 0, 1), conv)
+    assert not w.packed[:, c:].any() and not w.packed[:, :, c:].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("c", [40, 80, 160])
+def test_k6_plans_at_flagship_widths(c, dtype):
+    """At the flagship's DAG widths K6 fits 227 KB, keeps an 8x8 tile, and
+    at level 3 (C=160, 33x65) splits its output channels so that the
+    grid fills the 132 SMs."""
+    hw = {40: (129, 257), 80: (65, 129), 160: (33, 65)}[c]
+    for name in ("dil_conv_3x3", "dil_conv_5x5"):
+        plan = pt_cell.plan_dense_stage(name, c, dtype, hw, 1)
+        assert plan.tile == (8, 8) and plan.smem <= pt_cell.SMEM_LIMIT
+        assert plan.ns % 8 == 0 and (-(-c // 8) * 8) % plan.ns == 0 and plan.ns <= pt_cell.DENSE_NS_MAX
+        assert pt_cell.dense_blocks(plan, c, 1, *hw) >= pt_cell.SM_COUNT
+        assert plan.smem == pt_cell._dense_smem(name, c, dtype, 8, 8, plan.ns)
+    plan = pt_cell.plan_dense_stage("dil_conv_5x5", 160, dtype, (33, 65), 1)
+    assert plan.ns < 160 and pt_cell.dense_blocks(plan, 160, 1, 33, 65) == 45 * (160 // plan.ns)
+
+
+def test_k6_plans_cover_the_cuda_core_kernels_widths():
+    """Every width the CUDA-core K6 (one window of (C|1)-pitched pixels on
+    a STAGE_TILES tile) took still has a plan: the new K6 refuses nothing new."""
+    for dtype in (torch.float32, torch.bfloat16):
+        eb = torch.finfo(dtype).bits // 8
+        for name in ("dil_conv_3x3", "dil_conv_5x5"):
+            reach = 2 * (int(name[-1]) // 2)
+            old = [c for c in range(1, 1200)
+                   if any((th + 2 * reach) * (tw + 2 * reach) * (c | 1) * eb <= pt_cell.SMEM_LIMIT
+                          for th, tw in pt_cell.STAGE_TILES)]
+            assert old and all(pt_cell.plan_dense_stage(name, c, dtype) is not None for c in old), name
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """Round fp32 to tf32 as cvt.rna does: to nearest, ties away from zero,
+    on the 13 low mantissa bits (added to the magnitude, then masked)."""
+    bits = x.view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def test_k6_3xtf32_split_holds_fp32_tolerance():
+    """K6's fp32 scheme, emulated: ReLU'd inputs and weights split into
+    tf32 hi + lo, the products lo*hi + hi*lo + hi*hi accumulated in fp32,
+    at dil5, C=160, 9x11, against an fp64 conv. It holds relative 1e-4;
+    plain TF32 (hi*hi alone) is two orders of magnitude further off."""
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(1, 160, 9, 11).astype(np.float32)).relu()
+    w = torch.from_numpy((rng.randn(160, 160, 5, 5) / 40).astype(np.float32))
+    ref = torch.nn.functional.conv2d(x.double(), w.double(), dilation=2, padding=4)
+
+    def conv(a, b):
+        return torch.nn.functional.conv2d(a, b, dilation=2, padding=4)
+
+    xh, wh = _tf32(x), _tf32(w)
+    xl, wl = _tf32(x - xh), _tf32(w - wh)
+    assert torch.equal(_tf32(xh), xh) and (xh.view(torch.int32) & 0x1FFF).eq(0).all()
+    three = conv(xl, wh) + conv(xh, wl) + conv(xh, wh)
+    scale = ref.abs().max().item()
+    err3 = (three.double() - ref).abs().max().item() / scale
+    err1 = (conv(xh, wh).double() - ref).abs().max().item() / scale
+    assert err3 <= 1e-4 and err3 * 100 <= err1
 
 
 # ----------------------------------------------------------- whole model

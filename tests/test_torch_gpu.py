@@ -163,6 +163,62 @@ def test_k4_k5_k6_match_plain_on_gpu(name, shape, dtype):
 
 @needs_gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k6_at_flagship_level3_matches_plain_on_gpu(dtype):
+    """K6 on dil5 at the flagship's level-3 width and size (C=160, 33x65),
+    where its plan splits the output channels over blocks to fill the SMs."""
+    torch.backends.cudnn.allow_tf32 = False
+    name, c, hw = "dil_conv_5x5", 160, (33, 65)
+    plan = pt_cell.plan_dense_stage(name, c, dtype, hw, 1)
+    assert pt_cell.dense_blocks(plan, c, 1, *hw) >= pt_cell.SM_COUNT and plan.ns < c
+    x = _state(1, c, hw, dtype, seed=6)
+    w = pt_cell.edge_weights(_op(name, c, 21), name, dtype)
+    before = pt_cell.dense_stage.launches
+    with torch.inference_mode():
+        got, ref = pt_cell.dense_stage(x, name, w), pt_cell.dense_stage_reference(x, w)
+    torch.cuda.synchronize()
+    assert pt_cell.dense_stage.launches == before + 1
+    assert _rel_err(got, ref) <= _tol(dtype)
+
+
+@needs_gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tile,ns,ng", [((8, 8), 8, 1), ((8, 8), 16, 1), ((8, 8), 16, 2), ((4, 8), 16, 2),
+                                         ((2, 4), 8, 1), ((1, 4), 16, 1)])
+def test_k6_every_tile_on_gpu(tile, ns, ng, dtype):
+    """Each tile K6's plans may choose, N-slices of one and two n8
+    fragments, one or two warp groups, on a strided C=12 source."""
+    torch.backends.cudnn.allow_tf32 = False
+    name, c, hw = "dil_conv_5x5", 12, (13, 17)
+    x = _state(2, c, hw, dtype, seed=7, width=20)
+    w = pt_cell.edge_weights(_op(name, c, 22), name, dtype)
+    plan = pt_cell.Plan(tile, pt_cell._dense_smem(name, c, dtype, *tile, ns), ns, ng)
+    out = torch.empty(2, *hw, c, device="cuda", dtype=dtype).permute(0, 3, 1, 2)
+    with torch.inference_mode():
+        pt_cell._launch("dense_stage", x, [(x, name, w)], plan, out)
+        ref = pt_cell.dense_stage_reference(x, w)
+    torch.cuda.synchronize()
+    assert _rel_err(out, ref) <= _tol(dtype)
+
+
+@needs_gpu
+def test_k6_runs_on_the_tensor_cores():
+    """The built library's K6 kernels (bf16 and fp32) hold HMMA instructions."""
+    import os
+    import shutil
+    import subprocess
+
+    lib = _build.build("cell_ops")
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    tool = tool if os.path.exists(tool) else shutil.which("cuobjdump")
+    assert tool, "cuobjdump ships with the CUDA toolkit"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, check=True).stdout
+    k6 = [f for f in sass.split("Function : ")[1:] if "dense_stage_kernel" in f.splitlines()[0]]
+    assert len(k6) == 2, [f.splitlines()[0] for f in k6]
+    assert all("HMMA" in f for f in k6)
+
+
+@needs_gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("genotype", [
     AUTODEEPLAB_GENOTYPE,
     [[0, 1], [1, 4], [2, 3], [3, 7], [5, 2], [8, 6], [11, 0], [13, 5], [18, 3], [19, 4]],
@@ -210,14 +266,18 @@ def test_cell_plans_match_the_kernels_carveup():
                     kind, e.k, e.dil = pt_cell.EDGE_KINDS[name]
                     e.kind = pt_cell._KIND_CODE[kind]
                 assert lib.add_cell_smem_bytes(0, ctypes.byref(a)) == plan.smem, (names, c, dtype)
+            # K6 on its own and with the grid weighed at 33x65 (N-split included)
+            k6_at_level3 = lambda *p: pt_cell.plan_dense_stage(*p, (33, 65))  # noqa: E731
             for which, plan_fn, name in ((1, pt_cell.plan_sep_fused, "sep_conv_5x5"),
                                          (2, pt_cell.plan_sep_stage, "sep_conv_5x5"),
-                                         (3, pt_cell.plan_dense_stage, "dil_conv_5x5")):
+                                         (3, pt_cell.plan_dense_stage, "dil_conv_5x5"),
+                                         (3, k6_at_level3, "dil_conv_5x5"),
+                                         (3, pt_cell.plan_dense_stage, "dil_conv_3x3")):
                 plan = plan_fn(name, c, dtype)
                 if plan is None:
                     continue
                 kind, a.e[0].k, a.e[0].dil = pt_cell.EDGE_KINDS[name]
-                a.e[0].kind, (a.th, a.tw) = pt_cell._KIND_CODE[kind], plan.tile
+                a.e[0].kind, (a.th, a.tw), a.ns = pt_cell._KIND_CODE[kind], plan.tile, plan.ns
                 assert lib.add_cell_smem_bytes(which, ctypes.byref(a)) == plan.smem, (name, c, dtype)
 
 
