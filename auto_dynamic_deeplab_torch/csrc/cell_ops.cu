@@ -2,7 +2,8 @@
 //
 // They replace the Pallas functions of auto_dynamic_deeplab_tpu/kernels/cell_ops.py:
 //   K3 block_kernel        block_stage :765 (_block_kernel :566, pallas_call :826)
-//   K4 sep_fused_kernel    sep_fused   :385 (_sep_fused_kernel :335, pallas_call :413)
+//   K4 block_kernel        sep_fused   :385 (_sep_fused_kernel :335, pallas_call :413),
+//                          launched with one sep edge
 //   K5 sep_stage_kernel    sep_stage   :466 (_sep_stage_kernel :240, pallas_call :450)
 //   K6 dense_stage_kernel  dense_stage :495 (_dense_stage_kernel :280, pallas_call :450)
 //
@@ -26,55 +27,63 @@
 // Layout. A state is NCHW logical, channels_last memory: pixel (n, h, w)
 // starts at n * img_stride + (h * W + w) * ps and holds C contiguous
 // channels. ps > C for a channel slice of the cell's concat buffer, which
-// K3 writes into directly. Weights: dwk (C, k*k) fp32; pw (C, O8) and the
-// dense Q (k*k, C, O8) in the state dtype, output channels innermost and
-// zero-padded to O8 = C rounded up to 8 (16-byte loads); biases (O8,) fp32.
-// K6 reads the same dense weights packed as (k*k, O8, Cpad), input
-// channels innermost and zero-padded to Cpad (one 32-byte mma depth step).
+// K3 writes into directly. Weights: dwk (C, k*k) fp32; K5's pw (C, O8) in
+// the state dtype, output channels innermost and zero-padded to O8 = C
+// rounded up to 8 (16-byte loads); biases (O8,) fp32. The tensor-core
+// kernels read the pointwise and dense weights packed as (taps, O8, Cpad):
+// input channels innermost, zero-padded to Cpad (one 32-byte mma depth
+// step); a pointwise weight is one tap.
 //
-// Bound on an H100 SXM. A cell's DAG is about 8.2 GFLOP at every level of
-// the flagship (dil5 = 50 C^2 FLOP a pixel, sep = 4 C (k^2 + C)), 98.7
-// GFLOP for the 12 cells at 1025x2049, against 0.66 GB of state traffic in
-// fp32 (0.33 GB in bf16): operation-bound, 1.47 ms at the 67 TFLOP/s fp32
-// rate. K3-K5 do every product on the CUDA cores in fp32 (bf16 operands
-// are widened), so they cannot reach the 989 TFLOP/s bf16 tensor-core
-// bound of 0.10 ms; at 33x65 their tile grid has 25-45 blocks for the
-// card's 132 SMs. K6 runs its product on the tensor cores (below); K3's
-// dil edges through the same routine, and its pointwise products, are
-// later work.
+// Bound on an H100 SXM. A flagship cell's DAG is about 8.2 GFLOP at every
+// level (dil5 = 50 C^2 FLOP a pixel, sep = 4 C (k^2 + C)), 98.7 GFLOP for
+// the 12 cells at 1025x2049, against 0.66 GB of state traffic in fp32
+// (0.33 GB in bf16). The products are 95-99% of it and run on the tensor
+// cores (989 TFLOP/s bf16; fp32 by 3xTF32 at 495 / 3); the depthwise taps
+// run on the CUDA cores in fp32 (67 TFLOP/s). K5 still does every product
+// on the CUDA cores.
 //
-// K6 design (dense_stage_kernel). An implicit GEMM per block: M = the
-// pixels of a th x tw tile (one warp per 16, times 1-2 warp groups that
-// split N), N = an ns-channel slice of the outputs (ns | O8, ns <= 40; the
-// host's plan splits N over blockIdx.z so that the grid fills the SMs:
-// 45 tiles x 5 slices of 32 at 33x65, C=160), K = taps x Cpad. The window with its dilated halo is copied raw once by
-// cp.async (16-byte copies where the source's address and strides allow,
-// zero-filled outside the image; elementwise otherwise) at a row pitch of
-// Cpad plus 16 bytes, so that ldmatrix's 8 rows hit 8 bank groups; for tap
-// (a, b) the A rows are the window pixels (r + a*dil, q + b*dil) and no
-// im2col is built. The tap's ns x Cpad weights stream through a two-stage
-// cp.async buffer. ReLU is applied to the A fragments. bf16:
-// mma.sync m16n8k16 with fp32 accumulators. fp32: m16n8k8 tf32 in the
-// 3xTF32 split (x = hi + lo, both tf32, hi*hi + hi*lo + lo*hi summed in
-// fp32, ~2^-21 a product), since the port's fp32 policy is full fp32 and
-// plain TF32 misses 1e-4; both halves are split in registers, which keeps
-// the fp32 weight stages at one copy (220 KB a block at C=160, dil5).
-// The epilogue adds the fp32 bias, rounds once and stores channel pairs.
+// The tap-GEMM routine (tap_gemm, K3, K4 and K6). An implicit GEMM per
+// block: M = the pixels of a th x tw tile (one warp per 16, times 1-2 warp
+// groups that split N), N = an ns-channel slice of the outputs (ns | O8,
+// ns <= 40; the host's plan splits N over blockIdx.z so that the grid
+// fills the SMs: 45 tiles x 4-5 slices at 33x65, C=160), K = taps x Cpad.
+// A is a window in shared memory at a row pitch of Cpad plus 16 bytes, so
+// that ldmatrix's 8 rows hit 8 bank groups; for tap (a, b) the A rows are
+// the window pixels (r + a*dil, q + b*dil) and no im2col is built. The
+// tap's ns x Cpad weights stream through a two-stage cp.async buffer.
+// bf16: mma.sync m16n8k16 with fp32 accumulators. fp32: m16n8k8 tf32 in
+// the 3xTF32 split (x = hi + lo, both tf32, hi*hi + hi*lo + lo*hi summed
+// in fp32, ~2^-21 a product), since the port's fp32 policy is full fp32
+// and plain TF32 misses 1e-4; both halves are split in registers, which
+// keeps the fp32 weight stages at one copy. A DilConv is k x k taps at
+// dilation 2 on its raw window (copied once by cp.async, ReLU applied to
+// the A fragments); a pointwise product is one tap on a depthwise output.
 //
-// Design of K3-K5. A block of THREADS threads owns a TH x TW output tile of one
-// image and all C channels (TH, TW from the host's plan). The source
-// window with its halo is loaded once into shared memory (ReLU on load,
-// 0 outside the image), channel-innermost with an odd channel pitch so
-// that the pixel groups a warp reads fall on different banks. The
-// depthwise stage runs one (pixel, channel) per thread; the pointwise and
-// dense products are tiles of PX pixels x 8 output channels per thread,
-// accumulated in fp32 registers, with the weights read as 16-byte __ldg
-// loads (shared by every block, they stay in L1/L2). The fused SepConv
-// recomputes stage 1 on the tile plus a k//2 halo, so the intermediate
-// never leaves shared memory; the input window's space then holds the mid
-// and the stage-1 depthwise space the stage-2 one. K3 keeps the block sum
-// in an fp32 tile in shared memory, runs its edges one after another over
-// the same working space, and writes the state once.
+// K6 (dense_stage_kernel): one DilConv, the routine on its window; the
+// epilogue adds the fp32 bias, rounds once and stores channel pairs.
+//
+// K3/K4 (block_kernel): a block owns a th x tw tile of one image and an
+// ns-channel slice of the outputs, and runs its 1-2 edges one after
+// another over the same working space, accumulating their products into
+// the same fp32 registers. A dil edge is the routine on its window. A sep
+// edge copies its input window with a 2(k//2) halo raw by cp.async; the
+// depthwise runs on the CUDA cores in fp32 (taps in registers, one channel
+// pair a thread, ReLU at the read for stage 1), rounded and written at the
+// mma pitch with 0 in the pad channels; pw1 is the routine over the
+// stage-1 region (tile plus a k//2 halo), every output channel, in chunks
+// of ns, with an epilogue (+b1, ReLU, 0 outside the image, round) that
+// writes the mid over the spent input window; dw2, then pw2 over the
+// block's slice only. So every slice recomputes stage 1 for all C
+// channels; the plan weighs that against the waves a wider grid saves.
+// The epilogue sums the edges' biases and skip sources, rounds once and
+// writes the block's channel slice of the concat.
+//
+// K5 (sep_stage_kernel, CUDA cores): a block of THREADS threads owns a
+// TH x TW tile and all C channels; the source window with its halo is
+// loaded once (ReLU on load by flag, 0 outside the image) at an odd
+// channel pitch; the depthwise runs one (pixel, channel) per thread; the
+// pointwise product is tiles of PX pixels x 8 output channels per thread
+// in fp32 registers, with the weights read as 16-byte __ldg loads.
 // Every kernel launches on the caller's stream, allocates nothing, and
 // checks the host's shared-memory grant against its own carve-up.
 
@@ -90,11 +99,12 @@ struct Edge {
   int ps;                // elements between pixels
   int kind, k, dil;
   const float* dwk1;     // sep: stage-1 dw taps (C, k*k); K5: the stage's
-  const void* w1;        // sep: stage-1 pw (C, O8); dil: Q (k*k, C, O8)
-  const float* b1;       // (O8,)
+  const void* w1;        // K5: the stage's pw (C, O8)
+  const float* b1;       // (O8,): sep stage 1, dil, K5's stage
+  const void* pk1;       // packed (taps, O8, Cpad): sep stage-1 pw (1 tap), dil (k*k taps)
   const float* dwk2;     // sep: stage 2
-  const void* w2;        // sep: stage-2 pw; K6: packed Q (k*k, O8, Cpad)
   const float* b2;
+  const void* pk2;       // sep: stage-2 pw, packed (1, O8, Cpad)
 };
 
 struct Args {
@@ -103,13 +113,13 @@ struct Args {
   void* out;
   long long out_img_stride;
   int out_ps, N, H, W, C, O8, th, tw, smem;
-  int ns, ng;  // K6: output channels a block computes (its N-slice), warp groups over them
+  int ns, ng;  // K3/K4/K6: output channels a block computes (its N-slice), warp groups over them
 };
 
 namespace {
 
-// 5 warps: the flagship's C = 40 * 2^level gives 5 * 2^level groups of 8
-// output channels, so a tile's GEMM items come in multiples of 160.
+// K5: 5 warps; the flagship's C = 40 * 2^level gives 5 * 2^level groups of
+// 8 output channels, so a tile's GEMM items come in multiples of 160.
 constexpr int THREADS = 160;
 constexpr int PX = 4;   // pixels of one GEMM item, along a tile row
 constexpr int OG = 8;   // output channels of one GEMM item
@@ -155,37 +165,7 @@ __host__ __device__ inline size_t window_bytes(int h, int w, int C, int eb) {
   return r16((size_t)h * w * pitch(C) * eb);
 }
 
-// one edge's working space on a th x tw tile
-__host__ __device__ inline size_t edge_bytes(int kind, int k, int dil, int C, int eb, int th, int tw) {
-  if (kind == SEP) {
-    const int r = k / 2;
-    return window_bytes(th + 4 * r, tw + 4 * r, C, eb) + window_bytes(th + 2 * r, tw + 2 * r, C, eb);
-  }
-  if (kind == DIL) {
-    const int R = dil * (k / 2);
-    return window_bytes(th + 2 * R, tw + 2 * R, C, eb);
-  }
-  return 0;
-}
-
-__host__ __device__ inline size_t acc_bytes(int th, int tw, int C) {
-  return r16((size_t)th * tw * C * sizeof(float));
-}
-
 inline int elem_bytes(const Args& a) { return a.is_bf16 ? 2 : 4; }
-
-size_t block_smem(const Args& a) {
-  size_t m = 0;
-  for (int i = 0; i < a.n_edges; ++i) {
-    const size_t b = edge_bytes(a.e[i].kind, a.e[i].k, a.e[i].dil, a.C, elem_bytes(a), a.th, a.tw);
-    m = b > m ? b : m;
-  }
-  return acc_bytes(a.th, a.tw, a.C) + m;
-}
-
-size_t edge_smem(const Args& a) {
-  return edge_bytes(a.e[0].kind, a.e[0].k, a.e[0].dil, a.C, elem_bytes(a), a.th, a.tw);
-}
 
 size_t stage_smem(const Args& a) {
   const int r = a.e[0].k / 2;
@@ -193,23 +173,62 @@ size_t stage_smem(const Args& a) {
          window_bytes(a.th, a.tw, a.C, elem_bytes(a));
 }
 
-// K6: channels padded to one mma depth step of 32 bytes (16 bf16, 8 fp32),
-// and a row pitch 16 bytes longer, so that a pitch is an odd multiple of 16
-// bytes and the 8 rows an ldmatrix reads fall on 8 different bank groups.
+// The mma layout: channels padded to one mma depth step of 32 bytes (16
+// bf16, 8 fp32), and a row pitch 16 bytes longer, so that a pitch is an
+// odd multiple of 16 bytes and the 8 rows an ldmatrix reads fall on 8
+// different bank groups.
 __host__ __device__ inline int dense_cpad(int C, int eb) {
   const int q = 32 / eb;
   return (C + q - 1) / q * q;
 }
 __host__ __device__ inline int dense_pitch(int C, int eb) { return dense_cpad(C, eb) + 16 / eb; }
 
-// the window with its dilated halo, then two stages of ns weight rows
-size_t dense_smem(const Args& a) {
-  const int eb = elem_bytes(a), R = a.e[0].dil * (a.e[0].k / 2);
-  const size_t rows = (size_t)(a.th + 2 * R) * (a.tw + 2 * R) + 2 * (size_t)a.ns;
-  return rows * dense_pitch(a.C, eb) * eb;
+// Rows (pixels) of one edge's working space on a th x tw tile: a sep
+// edge's input window with a 2(k//2) halo plus its stage-1 region (tile
+// plus a k//2 halo), a dil edge's window with its dilated halo.
+__host__ __device__ inline int edge_rows(int kind, int k, int dil, int th, int tw) {
+  if (kind == SEP) {
+    const int r = k / 2;
+    return (th + 4 * r) * (tw + 4 * r) + (th + 2 * r) * (tw + 2 * r);
+  }
+  if (kind == DIL) {
+    const int R = dil * (k / 2);
+    return (th + 2 * R) * (tw + 2 * R);
+  }
+  return 0;
 }
 
-// ------------------------------------------------------ device pieces
+__host__ __device__ inline int space_rows(const Args& a) {
+  int m = 0;
+  for (int i = 0; i < a.n_edges; ++i) {
+    const int r = edge_rows(a.e[i].kind, a.e[i].k, a.e[i].dil, a.th, a.tw);
+    m = r > m ? r : m;
+  }
+  return m;
+}
+
+// Edges of a K3 block with products (not skip)
+__host__ __device__ inline int product_edges(const Args& a) {
+  int m = 0;
+  for (int i = 0; i < a.n_edges; ++i) m += a.e[i].kind != SKIP;
+  return m;
+}
+
+// Floats a thread of K3 parks between two edges with products: its
+// accumulators, 4 for each of its group's n8 fragments
+__host__ __device__ inline int stash_floats(const Args& a) {
+  return product_edges(a) > 1 ? 4 * ((a.ns / 8 + a.ng - 1) / a.ng) : 0;
+}
+
+// K3, K4 and K6: the largest edge's space, then two stages of ns weight
+// rows, then K3's stash, stash_floats for each of the block's threads
+size_t block_smem(const Args& a) {
+  const int eb = elem_bytes(a), threads = (a.th * a.tw + 15) / 16 * a.ng * 32;
+  return ((size_t)space_rows(a) + 2 * (size_t)a.ns) * dense_pitch(a.C, eb) * eb +
+         (size_t)threads * stash_floats(a) * sizeof(float);
+}
+
+// ------------------------------------------------------ K5's pieces
 
 // win[(i * ww + j) * cp + c] = src pixel (r0 + i, c0 + j), channel c, for
 // i < wh, j < ww; 0 outside the image, ReLU'd when `relu`.
@@ -276,113 +295,6 @@ __device__ __forceinline__ void pw_item(const T* src, int C, int p0, int np, con
   }
 }
 
-// Implicit GEMM of the dense k x k conv at dilation `dil`: tile pixels
-// (r, q..q+PX-1) of a window with row pitch ww pixels whose origin is the
-// tile's minus the reach; acc[px][o] = sum_{a,b,c} win[r+a*dil][q+px+b*dil][c]
-// * Q[a*k+b][c][og*8+o].
-template <typename T>
-__device__ __forceinline__ void dil_item(const T* win, int ww, int C, int k, int dil, int r, int q,
-                                         const T* __restrict__ Q, int O8, int og,
-                                         float (&acc)[PX][OG]) {
-  const int cp = pitch(C);
-#pragma unroll
-  for (int px = 0; px < PX; ++px)
-#pragma unroll
-    for (int o = 0; o < OG; ++o) acc[px][o] = 0.f;
-  for (int a = 0; a < k; ++a)
-    for (int b = 0; b < k; ++b) {
-      const T* s = win + ((r + a * dil) * ww + q + b * dil) * cp;
-      const T* wp = Q + (size_t)(a * k + b) * C * O8 + og * OG;
-      for (int c = 0; c < C; ++c) {
-        float wv[OG];
-        load8(wp + (size_t)c * O8, wv);
-#pragma unroll
-        for (int px = 0; px < PX; ++px) {
-          const float v = Cvt<T>::to(s[px * cp + c]);
-#pragma unroll
-          for (int o = 0; o < OG; ++o) acc[px][o] = fmaf(v, wv[o], acc[px][o]);
-        }
-      }
-    }
-}
-
-// The whole SepConv of edge e on the block's tile, stage 1 recomputed on a
-// k//2 halo. Calls epi(p, o, y) for tile pixel p (row-major), output
-// channel o < C, with y = pw2 . dw2(mid) + b2 in fp32.
-template <typename T, typename Epi>
-__device__ void sep_edge(const Edge& e, const Args& a, int n, int r0, int c0, unsigned char* space,
-                         Epi epi) {
-  const int C = a.C, cp = pitch(C), k = e.k, r = k / 2, th = a.th, tw = a.tw;
-  const int xh = th + 4 * r, xw = tw + 4 * r, eh = th + 2 * r, ew = tw + 2 * r;
-  T* X = reinterpret_cast<T*>(space);  // input window, then mid
-  T* D = reinterpret_cast<T*>(space + window_bytes(xh, xw, C, sizeof(T)));  // dw1, then dw2
-  load_window<T>(e, n, a.H, a.W, C, r0 - 2 * r, c0 - 2 * r, xh, xw, true, X);
-  __syncthreads();
-  depthwise<T>(X, xw, C, k, e.dwk1, D, eh, ew);
-  __syncthreads();
-  const int G = a.O8 / OG;
-  const int np1 = eh * ew, ng1 = (np1 + PX - 1) / PX;
-  for (int item = threadIdx.x; item < ng1 * G; item += blockDim.x) {
-    const int og = item % G, p0 = (item / G) * PX;
-    float acc[PX][OG];
-    pw_item<T>(D, C, p0, np1, static_cast<const T*>(e.w1), a.O8, og, acc);
-#pragma unroll
-    for (int px = 0; px < PX; ++px) {
-      const int p = p0 + px;
-      if (p >= np1) continue;
-      const int gr = r0 - r + p / ew, gc = c0 - r + p % ew;
-      const bool inside = gr >= 0 && gr < a.H && gc >= 0 && gc < a.W;
-#pragma unroll
-      for (int o = 0; o < OG; ++o) {
-        const int co = og * OG + o;
-        if (co < C)
-          X[p * cp + co] = Cvt<T>::from(inside ? fmaxf(acc[px][o] + e.b1[co], 0.f) : 0.f);
-      }
-    }
-  }
-  __syncthreads();
-  depthwise<T>(X, ew, C, k, e.dwk2, D, th, tw);
-  __syncthreads();
-  const int np2 = th * tw, ng2 = np2 / PX;
-  for (int item = threadIdx.x; item < ng2 * G; item += blockDim.x) {
-    const int og = item % G, p0 = (item / G) * PX;
-    float acc[PX][OG];
-    pw_item<T>(D, C, p0, np2, static_cast<const T*>(e.w2), a.O8, og, acc);
-#pragma unroll
-    for (int px = 0; px < PX; ++px)
-#pragma unroll
-      for (int o = 0; o < OG; ++o) {
-        const int co = og * OG + o;
-        if (co < C) epi(p0 + px, co, acc[px][o] + e.b2[co]);
-      }
-  }
-}
-
-// The DilConv of edge e on the block's tile: epi(p, o, conv + b) in fp32.
-template <typename T, typename Epi>
-__device__ void dil_edge(const Edge& e, const Args& a, int n, int r0, int c0, unsigned char* space,
-                         Epi epi) {
-  const int C = a.C, th = a.th, tw = a.tw, R = e.dil * (e.k / 2);
-  const int wh = th + 2 * R, ww = tw + 2 * R;
-  T* X = reinterpret_cast<T*>(space);
-  load_window<T>(e, n, a.H, a.W, C, r0 - R, c0 - R, wh, ww, true, X);
-  __syncthreads();
-  const int G = a.O8 / OG, gpr = tw / PX, ng = th * gpr;
-  for (int item = threadIdx.x; item < ng * G; item += blockDim.x) {
-    const int og = item % G, pg = item / G;
-    const int r = pg / gpr, q = (pg % gpr) * PX;
-    float acc[PX][OG];
-    dil_item<T>(X, ww, C, e.k, e.dil, r, q, static_cast<const T*>(e.w1), a.O8, og, acc);
-#pragma unroll
-    for (int px = 0; px < PX; ++px)
-#pragma unroll
-      for (int o = 0; o < OG; ++o) {
-        const int co = og * OG + o;
-        if (co < C) epi(r * tw + q + px, co, acc[px][o] + e.b1[co]);
-      }
-  }
-}
-
 // Stores y (rounded) at tile pixel p, channel c, when the pixel is inside.
 template <typename T>
 struct Store {
@@ -395,53 +307,6 @@ struct Store {
       out[((long long)gr * W + gc) * ps + c] = Cvt<T>::from(relu ? fmaxf(y, 0.f) : y);
   }
 };
-
-template <typename T>
-__device__ Store<T> make_store(const Args& a, int n, int r0, int c0, bool relu) {
-  return Store<T>{static_cast<T*>(a.out) + n * a.out_img_stride, a.out_ps, a.H, a.W, r0, c0, a.tw,
-                  relu};
-}
-
-// ------------------------------------------------------------- kernels
-
-// K3: one DAG block, its 1-2 edges summed in an fp32 tile, written once.
-template <typename T>
-__global__ void __launch_bounds__(THREADS) block_kernel(const Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int n = blockIdx.z, r0 = blockIdx.y * a.th, c0 = blockIdx.x * a.tw;
-  const int C = a.C, npx = a.th * a.tw;
-  float* acc = reinterpret_cast<float*>(smem);
-  unsigned char* space = smem + acc_bytes(a.th, a.tw, C);
-  for (int i = threadIdx.x; i < npx * C; i += blockDim.x) acc[i] = 0.f;
-  __syncthreads();
-  auto add = [&](int p, int c, float y) { acc[p * C + c] += y; };
-  for (int ei = 0; ei < a.n_edges; ++ei) {
-    const Edge& e = a.e[ei];
-    if (e.kind == SKIP) {
-      const T* src = static_cast<const T*>(e.src) + n * e.img_stride;
-      for (int i = threadIdx.x; i < npx * C; i += blockDim.x) {
-        const int c = i % C, p = i / C;
-        const int gr = r0 + p / a.tw, gc = c0 + p % a.tw;
-        if (gr < a.H && gc < a.W) acc[i] += Cvt<T>::to(src[((long long)gr * a.W + gc) * e.ps + c]);
-      }
-    } else if (e.kind == SEP) {
-      sep_edge<T>(e, a, n, r0, c0, space, add);
-    } else {
-      dil_edge<T>(e, a, n, r0, c0, space, add);
-    }
-    __syncthreads();
-  }
-  const Store<T> store = make_store<T>(a, n, r0, c0, false);
-  for (int i = threadIdx.x; i < npx * C; i += blockDim.x) store(i / C, i % C, acc[i]);
-}
-
-// K4: one whole SepConv edge.
-template <typename T>
-__global__ void __launch_bounds__(THREADS) sep_fused_kernel(const Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int n = blockIdx.z, r0 = blockIdx.y * a.th, c0 = blockIdx.x * a.tw;
-  sep_edge<T>(a.e[0], a, n, r0, c0, smem, make_store<T>(a, n, r0, c0, false));
-}
 
 // K5: one dw k x k -> round -> pw -> +b stage, ReLU on input / output by flag.
 template <typename T>
@@ -457,7 +322,8 @@ __global__ void __launch_bounds__(THREADS) sep_stage_kernel(const Args a) {
   __syncthreads();
   depthwise<T>(X, ww, C, e.k, e.dwk1, D, th, tw);
   __syncthreads();
-  const Store<T> store = make_store<T>(a, n, r0, c0, a.out_relu != 0);
+  const Store<T> store{static_cast<T*>(a.out) + n * a.out_img_stride, a.out_ps, a.H, a.W, r0, c0,
+                       a.tw, a.out_relu != 0};
   const int G = a.O8 / OG, np = th * tw, ng = np / PX;
   for (int item = threadIdx.x; item < ng * G; item += blockDim.x) {
     const int og = item % G, p0 = (item / G) * PX;
@@ -473,11 +339,11 @@ __global__ void __launch_bounds__(THREADS) sep_stage_kernel(const Args a) {
   }
 }
 
-// ------------------------------------------- K6: tensor-core implicit GEMM
+// ------------------------------- tensor-core pieces (K3, K4 and K6)
 
-constexpr int DENSE_MWARPS = 4;  // warps along M, one per 16 tile pixels: at most 4
-constexpr int DENSE_GROUPS = 2;  // warp groups that split the N-slice: at most 2
-constexpr int NF_MAX = 5;        // n8 fragments a warp holds, so ns <= 40
+constexpr int MMA_MWARPS = 4;  // warps along M, one per 16 tile pixels: at most 4
+constexpr int MMA_GROUPS = 2;  // warp groups that split the N-slice: at most 2
+constexpr int NF_MAX = 5;      // n8 fragments a warp holds, so ns <= 40
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -565,23 +431,22 @@ __device__ __forceinline__ void dense_load(const unsigned char* a_ptr, const uns
   }
 }
 
-// bf16: ReLU on the loaded A fragment (not on load), run on the next
-// step's fragments after this step's mmas are issued. fp32 ReLUs and
-// splits inside dense_mma instead: holding split fragments for two steps
-// ran slower (PERF.md §6).
-template <typename T>
+// bf16: ReLU (for a DilConv's raw window) on the loaded A fragment, run on
+// the next step's fragments after this step's mmas are issued. fp32 ReLUs
+// and splits inside dense_mma instead: holding split fragments for two
+// steps ran slower (PERF.md §6).
+template <typename T, bool RELU>
 __device__ __forceinline__ void dense_prep(Frags& f) {
-  if constexpr (sizeof(T) == 2) {
+  if constexpr (sizeof(T) == 2 && RELU) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) f.a[i] = relu_bf16x2(f.a[i]);
   }
 }
 
-// One step's products. fp32: 3xTF32 (A ReLU'd, A and B split into tf32
-// high and low halves), the two small terms into their own accumulators,
-// which halves each chain of dependent mmas; the kernel adds the two at
-// the end.
-template <typename T>
+// One step's products. fp32: 3xTF32 (A and B split into tf32 high and low
+// halves), the two small terms into their own accumulators, which halves
+// each chain of dependent mmas; the epilogues add the two at the end.
+template <typename T, bool RELU>
 __device__ __forceinline__ void dense_mma(const Frags& f, int nf, float (&acc)[NF_MAX][4],
                                           float (&acc_lo)[NF_MAX][4]) {
   if constexpr (sizeof(T) == 2) {
@@ -591,7 +456,10 @@ __device__ __forceinline__ void dense_mma(const Frags& f, int nf, float (&acc)[N
   } else {
     uint32_t ahi[4], alo[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) split_tf32(fmaxf(__uint_as_float(f.a[i]), 0.f), ahi[i], alo[i]);
+    for (int i = 0; i < 4; ++i) {
+      const float x = __uint_as_float(f.a[i]);
+      split_tf32(RELU ? fmaxf(x, 0.f) : x, ahi[i], alo[i]);
+    }
 #pragma unroll
     for (int j = 0; j < NF_MAX; ++j) {
       if (j >= nf) break;
@@ -601,6 +469,30 @@ __device__ __forceinline__ void dense_mma(const Frags& f, int nf, float (&acc)[N
       mma_tf32(acc_lo[j], alo, bhi[0], bhi[1]);
       mma_tf32(acc_lo[j], ahi, blo[0], blo[1]);
       mma_tf32(acc[j], ahi, bhi[0], bhi[1]);
+    }
+  }
+}
+
+// One warp's 16 x (8 nf) product over `ksteps` depth steps of 32 bytes:
+// A rows from a_ptr (the lane's row), B from b_ptr (the lane's weight row)
+// at pitch pb. The next step's fragments are loaded before this step's
+// products, into the other of two register sets (no copies between them).
+template <typename T, bool RELU>
+__device__ __forceinline__ void warp_product(const unsigned char* ap, const unsigned char* bp, int pb,
+                                             int nf, int ksteps, float (&acc)[NF_MAX][4],
+                                             float (&acc_lo)[NF_MAX][4]) {
+  if (nf <= 0) return;
+  Frags f0, f1;
+  dense_load(ap, bp, pb, nf, f0);
+  dense_prep<T, RELU>(f0);
+  for (int s = 0; s < ksteps; s += 2) {
+    if (s + 1 < ksteps) dense_load(ap + (s + 1) * 32, bp + (s + 1) * 32, pb, nf, f1);
+    dense_mma<T, RELU>(f0, nf, acc, acc_lo);
+    if (s + 1 < ksteps) {
+      dense_prep<T, RELU>(f1);
+      if (s + 2 < ksteps) dense_load(ap + (s + 2) * 32, bp + (s + 2) * 32, pb, nf, f0);
+      dense_mma<T, RELU>(f1, nf, acc, acc_lo);
+      if (s + 2 < ksteps) dense_prep<T, RELU>(f0);
     }
   }
 }
@@ -623,35 +515,24 @@ __device__ __forceinline__ void for_2d(int rows, int cols, F f) {
   }
 }
 
-// K6: one DilConv edge as an implicit GEMM on the tensor cores. A block
-// owns a th x tw tile of one image and an N-slice of ns output channels
-// (blockIdx.z = image * slices + slice); its warps are ng groups of one
-// warp per 16 tile pixels (rows past th * tw repeat the last pixel and are
-// not stored), and group i holds the i-th run of the slice's fragments.
-// M = tile pixels, N = ns, K = taps x Cpad; for tap (ta, tb) the A rows
-// are the window pixels (r + ta*dil, q + tb*dil), whose channels are
-// contiguous in shared memory, so no im2col is built. The raw window is
-// copied once by cp.async (zero outside the image and in the pad
-// channels); the tap's ns x Cpad weights stream through a two-stage
-// cp.async buffer. Epilogue: + fp32 bias, one rounding, channel pairs
-// stored together where the layout allows.
+// rows x Cpad packed weights from global g into a stage at pitch pb, by cp.async
 template <typename T>
-__global__ void __launch_bounds__(DENSE_MWARPS * DENSE_GROUPS * 32)
-    dense_stage_kernel(const Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int EB = sizeof(T);
-  const Edge& e = a.e[0];
-  const int slices = a.O8 / a.ns;
-  const int n = blockIdx.z / slices, n0 = (blockIdx.z % slices) * a.ns;
-  const int r0 = blockIdx.y * a.th, c0 = blockIdx.x * a.tw;
-  const int C = a.C, k = e.k, dil = e.dil, R = dil * (k / 2), kk = k * k;
-  const int wh = a.th + 2 * R, ww = a.tw + 2 * R;
-  const int cpad = dense_cpad(C, EB), pb = dense_pitch(C, EB) * EB;  // pitch in bytes
-  const int chunks = cpad * EB / 16;                                  // 16-byte pieces a row
-  unsigned char* win = smem;
-  unsigned char* wst = smem + (size_t)wh * ww * pb;  // stage s, row r at (s * ns + r) * pb
+__device__ __forceinline__ void stage_rows(const unsigned char* g, int rows, int cpad,
+                                           unsigned char* d, int pb) {
+  const int rb = cpad * sizeof(T);
+  for_2d(rows, rb / 16, [&](int r, int j) { cp_async16(d + r * pb + j * 16, g + r * rb + j * 16, true); });
+}
 
-  // the window, raw: 16-byte cp.async where the source allows, else by element
+// The window of source pixels (r0 + i, c0 + j), i < wh, j < ww, raw (no
+// ReLU) in the mma layout: pixel i * ww + j at that row times the pitch,
+// 0 outside the image and in the pad channels. 16-byte cp.async where the
+// source's address and strides allow (the caller commits and waits), else
+// element by element.
+template <typename T>
+__device__ __forceinline__ void load_raw_window(const Edge& e, int n, int H, int W, int C, int r0,
+                                                int c0, int wh, int ww, unsigned char* win) {
+  constexpr int EB = sizeof(T);
+  const int cpad = dense_cpad(C, EB), pb = dense_pitch(C, EB) * EB;
   const unsigned char* src =
       static_cast<const unsigned char*>(e.src) + (size_t)n * e.img_stride * EB;
   const int cbytes = C * EB;
@@ -659,13 +540,12 @@ __global__ void __launch_bounds__(DENSE_MWARPS * DENSE_GROUPS * 32)
                    reinterpret_cast<uintptr_t>(e.src) % 16 == 0;
   if (vec) {
     const int cc = cbytes / 16;
-    for_2d(wh * ww, chunks, [&](int p, int j) {
-      const int wr = p / ww, gr = r0 - R + wr, gc = c0 - R + p - wr * ww;
+    for_2d(wh * ww, cpad * EB / 16, [&](int p, int j) {
+      const int wr = p / ww, gr = r0 + wr, gc = c0 + p - wr * ww;
       unsigned char* dst = win + (size_t)p * pb + j * 16;
       if (j < cc) {
-        const bool inside = gr >= 0 && gr < a.H && gc >= 0 && gc < a.W;
-        const unsigned char* s =
-            inside ? src + (((size_t)gr * a.W + gc) * e.ps) * EB + j * 16 : src;
+        const bool inside = gr >= 0 && gr < H && gc >= 0 && gc < W;
+        const unsigned char* s = inside ? src + (((size_t)gr * W + gc) * e.ps) * EB + j * 16 : src;
         cp_async16(dst, s, inside);
       } else {
         *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
@@ -675,94 +555,198 @@ __global__ void __launch_bounds__(DENSE_MWARPS * DENSE_GROUPS * 32)
     const T* s = reinterpret_cast<const T*>(src);
     for (int i = threadIdx.x; i < wh * ww * cpad; i += blockDim.x) {
       const int c = i % cpad, p = i / cpad;
-      const int gr = r0 - R + p / ww, gc = c0 - R + p % ww;
-      const bool inside = c < C && gr >= 0 && gr < a.H && gc >= 0 && gc < a.W;
+      const int gr = r0 + p / ww, gc = c0 + p % ww;
+      const bool inside = c < C && gr >= 0 && gr < H && gc >= 0 && gc < W;
       reinterpret_cast<T*>(win + (size_t)p * pb)[c] =
-          inside ? s[((size_t)gr * a.W + gc) * e.ps + c] : Cvt<T>::from(0.f);
+          inside ? s[((size_t)gr * W + gc) * e.ps + c] : Cvt<T>::from(0.f);
     }
   }
+}
 
-  const unsigned char* q = static_cast<const unsigned char*>(e.w2);
+// A warp's place in a block's product: m-warp mw (tile pixels [16 mw,
+// 16 mw + 16)) of mws, and the run of nf of the slice's n8 fragments from
+// j0 that its group holds; g() and t() index the lane's accumulator rows
+// and channel pair (worked out where the epilogues need them, so that they
+// hold no registers through the products); pb is the mma layout's row
+// pitch in bytes. a_row(win, ww,
+// tw, M) is the lane's ldmatrix address for tile pixel p (rows past the
+// tile's M pixels repeat the last one) in a window of ww-pixel rows whose
+// origin is the tile's; b_off the lane's weight row and half. The tile's
+// sizes stay in the kernel's parameters, not in registers.
+struct WarpTile {
+  int lane, mw, mws, j0, nf, pb;
+  __device__ WarpTile(int M, int ns, int ng, int pb_) : pb(pb_) {
+    mws = (M + 15) / 16;
+    lane = threadIdx.x % 32;
+    mw = (threadIdx.x / 32) % mws;
+    const int group = threadIdx.x / 32 / mws, per = (ns / 8 + ng - 1) / ng;
+    j0 = group * per;
+    nf = max(0, min(per, ns / 8 - j0));
+  }
+  __device__ int g() const { return lane / 4; }
+  __device__ int t() const { return lane % 4; }
+  __device__ const unsigned char* a_row(const unsigned char* win, int ww, int tw, int M) const {
+    const int p = min(mw * 16 + (lane & 15), M - 1), pr = p / tw, pc = p % tw;
+    return win + (size_t)(pr * ww + pc) * pb + (lane >> 4) * 16;
+  }
+  __device__ int b_off() const {
+    return (j0 * 8 + (lane & 7) + ((lane >> 4) << 3)) * pb + ((lane >> 3) & 1) * 16;
+  }
+};
+
+// The tap-GEMM routine of K3, K4 and K6: acc (+ acc_lo) += the sum over
+// the k x k taps (ta, tb) at dilation dil of A B^T, A the lane's window
+// row a_lane shifted by (ta dil, tb dil) pixels (rows of ww pixels), B the
+// tap's ns packed weight rows, tap t's at g + t * tap_bytes, streamed
+// through the two-stage buffer wst. Every thread of the block calls it
+// (it holds barriers; a warp with nf = 0 only copies), and it ends on a
+// barrier. Copies the caller issued and did not commit land with tap 0's
+// weights.
+template <typename T, bool RELU>
+__device__ __forceinline__ void tap_gemm(const unsigned char* a_lane, int ww, int k, int dil,
+                                         const unsigned char* g, size_t tap_bytes, int ns, int cpad,
+                                         unsigned char* wst, const WarpTile& w,
+                                         float (&acc)[NF_MAX][4], float (&acc_lo)[NF_MAX][4]) {
+  const int kk = k * k, ksteps = cpad * sizeof(T) / 32, b_off = w.b_off();
   auto load_tap = [&](int tap, int stage) {
-    const unsigned char* g = q + ((size_t)tap * a.O8 + n0) * cpad * EB;
-    unsigned char* d = wst + (size_t)stage * a.ns * pb;
-    for_2d(a.ns, chunks, [&](int r, int j) {
-      cp_async16(d + r * pb + j * 16, g + r * cpad * EB + j * 16, true);
-    });
+    stage_rows<T>(g + tap * tap_bytes, ns, cpad, wst + (size_t)stage * ns * w.pb, w.pb);
   };
   load_tap(0, 0);
   cp_async_commit();
-
-  // warp = (m-warp mw: tile pixels [16 mw, 16 mw + 16), group: a run of
-  // nf of the slice's n8 fragments starting at j0)
-  const int M = a.th * a.tw, mws = (M + 15) / 16, lane = threadIdx.x % 32;
-  const int mw = (threadIdx.x / 32) % mws, group = threadIdx.x / 32 / mws;
-  const int per = (a.ns / 8 + a.ng - 1) / a.ng, j0 = group * per;
-  const int nf = max(0, min(per, a.ns / 8 - j0));
-  // this lane's ldmatrix rows: A pixel (tile row pr, column pc) and k half;
-  // B row (output channel within a pair of n8 blocks) and k half
-  const int p = min(mw * 16 + (lane & 15), M - 1), pr = p / a.tw, pc = p % a.tw;
-  const unsigned char* a_lane = win + (size_t)(pr * ww + pc) * pb + (lane >> 4) * 16;
-  const int b_row = j0 * 8 + (lane & 7) + ((lane >> 4) << 3);
-  const int b_off = b_row * pb + ((lane >> 3) & 1) * 16;
-
-  float acc[NF_MAX][4], acc_lo[NF_MAX][4];
-#pragma unroll
-  for (int j = 0; j < NF_MAX; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[j][i] = acc_lo[j][i] = 0.f;
-
-  const int ksteps = cpad * EB / 32;
   for (int tap = 0; tap < kk; ++tap) {
     if (tap + 1 < kk) load_tap(tap + 1, (tap + 1) & 1);
     cp_async_commit();
     cp_async_wait<1>();  // the window and this tap's weights have landed
     __syncthreads();
     const int ta = tap / k, tb = tap % k;
-    const unsigned char* ap = a_lane + (size_t)(ta * dil * ww + tb * dil) * pb;
-    const unsigned char* bp = wst + (size_t)((tap & 1) * a.ns) * pb + b_off;
-    if (nf > 0) {
-      // the next step's fragments are loaded before this step's products,
-      // into the other of two register sets (no copies between them)
-      Frags f0, f1;
-      dense_load(ap, bp, pb, nf, f0);
-      dense_prep<T>(f0);
-      for (int s = 0; s < ksteps; s += 2) {
-        if (s + 1 < ksteps) dense_load(ap + (s + 1) * 32, bp + (s + 1) * 32, pb, nf, f1);
-        dense_mma<T>(f0, nf, acc, acc_lo);
-        if (s + 1 < ksteps) {
-          dense_prep<T>(f1);
-          if (s + 2 < ksteps) dense_load(ap + (s + 2) * 32, bp + (s + 2) * 32, pb, nf, f0);
-          dense_mma<T>(f1, nf, acc, acc_lo);
-          if (s + 2 < ksteps) dense_prep<T>(f0);
-        }
-      }
-    }
+    warp_product<T, RELU>(a_lane + (size_t)(ta * dil * ww + tb * dil) * w.pb,
+                          wst + (size_t)((tap & 1) * ns) * w.pb + b_off, w.pb, w.nf, ksteps, acc,
+                          acc_lo);
     __syncthreads();  // the stage is refilled by the next iteration
   }
+}
+
+__device__ __forceinline__ float2 load2(const float* p) { return *reinterpret_cast<const float2*>(p); }
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+// dst (dh x dw pixels, mma layout) = round(depthwise K x K of src (mma
+// layout, rows of sw pixels)), dst pixel (i, j) reading src pixels
+// (i..i+K-1, j..j+K-1), ReLU'd at the read when RELU; 0 in the pad
+// channels. A thread keeps one channel pair's fp32 taps in registers and
+// walks the pixels two at a time along a row (dw is even), loading K + 1
+// input columns a tap row instead of 2K.
+template <typename T, bool RELU, int K>
+__device__ __forceinline__ void depthwise_mma(const unsigned char* src, int sw, int C, int cpad,
+                                              int pb, const float* __restrict__ dwk,
+                                              unsigned char* dst, int dh, int dw) {
+  const int pairs = cpad / 2, per = blockDim.x / pairs;
+  const int c = 2 * (threadIdx.x % pairs);
+  int p = threadIdx.x / pairs;
+  if (p >= per) return;
+  float w0[K * K], w1[K * K];
+#pragma unroll
+  for (int i = 0; i < K * K; ++i) {
+    w0[i] = c < C ? __ldg(dwk + c * K * K + i) : 0.f;
+    w1[i] = c + 1 < C ? __ldg(dwk + (c + 1) * K * K + i) : 0.f;
+  }
+  const int hw2 = dw / 2;  // two adjacent pixels a step: the regions' widths are even
+  for (; p < dh * hw2; p += per) {
+    const int i = p / hw2, j = 2 * (p - i * hw2);
+    const unsigned char* s = src + ((size_t)i * sw + j) * pb + c * sizeof(T);
+    float a0 = 0.f, a1 = 0.f, b0 = 0.f, b1 = 0.f;
+#pragma unroll
+    for (int ta = 0; ta < K; ++ta) {
+      float2 v[K + 1];
+#pragma unroll
+      for (int tb = 0; tb <= K; ++tb) {
+        v[tb] = load2(reinterpret_cast<const T*>(s + (size_t)(ta * sw + tb) * pb));
+        if (RELU) {
+          v[tb].x = fmaxf(v[tb].x, 0.f);
+          v[tb].y = fmaxf(v[tb].y, 0.f);
+        }
+      }
+#pragma unroll
+      for (int tb = 0; tb < K; ++tb) {
+        a0 = fmaf(v[tb].x, w0[ta * K + tb], a0);
+        a1 = fmaf(v[tb].y, w1[ta * K + tb], a1);
+        b0 = fmaf(v[tb + 1].x, w0[ta * K + tb], b0);
+        b1 = fmaf(v[tb + 1].y, w1[ta * K + tb], b1);
+      }
+    }
+    T* o = reinterpret_cast<T*>(dst + ((size_t)i * dw + j) * pb) + c;
+    store2(o, c < C ? a0 : 0.f, c + 1 < C ? a1 : 0.f);
+    store2(reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(o) + pb), c < C ? b0 : 0.f,
+           c + 1 < C ? b1 : 0.f);
+  }
+}
+
+template <typename T, bool RELU>
+__device__ __forceinline__ void depthwise_k(int k, const unsigned char* src, int sw, int C, int cpad,
+                                            int pb, const float* dwk, unsigned char* dst, int dh,
+                                            int dw) {
+  if (k == 3)
+    depthwise_mma<T, RELU, 3>(src, sw, C, cpad, pb, dwk, dst, dh, dw);
+  else
+    depthwise_mma<T, RELU, 5>(src, sw, C, cpad, pb, dwk, dst, dh, dw);
+}
+
+// ------------------------------------------------------------- K6
+
+// K6: one DilConv edge, the tap-GEMM routine on its window. A block owns
+// a th x tw tile of one image and an N-slice of ns output channels
+// (blockIdx.z = image * slices + slice). Epilogue: + fp32 bias, one
+// rounding, channel pairs stored together where the layout allows.
+template <typename T>
+__global__ void __launch_bounds__(MMA_MWARPS * MMA_GROUPS * 32) dense_stage_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int EB = sizeof(T);
+  const Edge& e = a.e[0];
+  const int slices = a.O8 / a.ns;
+  const int n = blockIdx.z / slices, n0 = (blockIdx.z % slices) * a.ns;
+  const int r0 = blockIdx.y * a.th, c0 = blockIdx.x * a.tw;
+  const int C = a.C, R = e.dil * (e.k / 2);
+  const int wh = a.th + 2 * R, ww = a.tw + 2 * R;
+  const int cpad = dense_cpad(C, EB), pb = dense_pitch(C, EB) * EB;
+  unsigned char* win = smem;
+  unsigned char* wst = smem + (size_t)wh * ww * pb;
+  load_raw_window<T>(e, n, a.H, a.W, C, r0 - R, c0 - R, wh, ww, win);
+  const WarpTile w(a.th * a.tw, a.ns, a.ng, pb);
+
+  float acc[NF_MAX][4], acc_lo[NF_MAX][4];
+#pragma unroll
+  for (int j = 0; j < NF_MAX; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = acc_lo[j][i] = 0.f;
+  tap_gemm<T, true>(w.a_row(win, ww, a.tw, a.th * a.tw), ww, e.k, e.dil,
+                    static_cast<const unsigned char*>(e.pk1) + (size_t)n0 * cpad * EB,
+                    (size_t)a.O8 * cpad * EB, a.ns, cpad, wst, w, acc, acc_lo);
 
   // epilogue: lane holds rows g, g + 8 and channel pair 2t, 2t + 1 of each fragment
   T* out = static_cast<T*>(a.out) + (size_t)n * a.out_img_stride;
   const bool pairs = (a.out_ps % 2 == 0) && (a.out_img_stride % 2 == 0) &&
                      reinterpret_cast<uintptr_t>(a.out) % (2 * EB) == 0;
-  const int g = lane / 4, t = lane % 4;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int pp = mw * 16 + g + 8 * h;
+    const int pp = w.mw * 16 + w.g() + 8 * h;
     const int gr = r0 + pp / a.tw, gc = c0 + pp % a.tw;
-    if (pp >= M || gr >= a.H || gc >= a.W) continue;
+    if (pp >= a.th * a.tw || gr >= a.H || gc >= a.W) continue;
     T* o = out + ((size_t)gr * a.W + gc) * a.out_ps;
 #pragma unroll
     for (int j = 0; j < NF_MAX; ++j) {
-      if (j >= nf) break;
-      const int co = n0 + (j0 + j) * 8 + 2 * t;
+      if (j >= w.nf) break;
+      const int co = n0 + (w.j0 + j) * 8 + 2 * w.t();
       const float y0 = acc_lo[j][2 * h] + acc[j][2 * h] + e.b1[co];
       const float y1 = acc_lo[j][2 * h + 1] + acc[j][2 * h + 1] + e.b1[co + 1];
       if (pairs && co + 1 < C) {
-        if constexpr (EB == 2)
-          *reinterpret_cast<__nv_bfloat162*>(o + co) = __floats2bfloat162_rn(y0, y1);
-        else
-          *reinterpret_cast<float2*>(o + co) = make_float2(y0, y1);
+        store2(o + co, y0, y1);
       } else {
         if (co < C) o[co] = Cvt<T>::from(y0);
         if (co + 1 < C) o[co + 1] = Cvt<T>::from(y1);
@@ -771,64 +755,263 @@ __global__ void __launch_bounds__(DENSE_MWARPS * DENSE_GROUPS * 32)
   }
 }
 
-int launch(const void* kernel, const Args& a, size_t need, void* stream) {
-  if (a.th <= 0 || a.tw <= 0 || a.tw % PX || a.O8 % OG || a.O8 < a.C || a.C <= 0 ||
-      (size_t)a.smem < need || a.smem > SMEM_MAX)
-    return static_cast<int>(cudaErrorInvalidValue);
+// ---------------------------------------------------------- K3 and K4
+
+// One sep edge's products into the block's accumulators: stage 1 on the
+// tile plus a k//2 halo for every output channel, dw2, then pw2 over the
+// block's slice (output channels n0..n0+ns) without its bias.
+template <typename T>
+__device__ __forceinline__ void sep_products(const Edge& e, const Args& a, int n, int n0, int r0,
+                                             int c0, unsigned char* space, unsigned char* wst,
+                                             const WarpTile& w, float (&acc)[NF_MAX][4],
+                                             float (&acc_lo)[NF_MAX][4]) {
+  constexpr int EB = sizeof(T);
+  const int C = a.C, cpad = dense_cpad(C, EB), pb = w.pb, k = e.k, r = k / 2;
+  const int th = a.th, tw = a.tw, xh = th + 4 * r, xw = tw + 4 * r, eh = th + 2 * r,
+            ew = tw + 2 * r, M1 = eh * ew, ns = a.ns;
+  const size_t rb = (size_t)cpad * EB;  // one packed weight row
+  unsigned char* X = space;                       // the input window, then the mid
+  unsigned char* D = space + (size_t)xh * xw * pb;  // dw1, then dw2
+  const unsigned char* pk1 = static_cast<const unsigned char*>(e.pk1);
+  load_raw_window<T>(e, n, a.H, a.W, C, r0 - 2 * r, c0 - 2 * r, xh, xw, X);
+  stage_rows<T>(pk1, ns, cpad, wst, pb);  // pw1's first chunk of output channels
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  depthwise_k<T, true>(k, X, xw, C, cpad, pb, e.dwk1, D, eh, ew);
+
+  // pw1 over the M1 stage-1 pixels and all O8 outputs, in chunks of ns
+  // output channels (the warp's fragments of a chunk as of the slice);
+  // epilogue +b1, ReLU, 0 outside the image, round: the mid, over X
+  const int chunks = a.O8 / ns, mfr = (M1 + 15) / 16, ksteps = cpad * EB / 32, b_off = w.b_off();
+  for (int ch = 0; ch < chunks; ++ch) {
+    if (ch + 1 < chunks) stage_rows<T>(pk1 + (ch + 1) * ns * rb, ns, cpad, wst + ((ch + 1) & 1) * ns * pb, pb);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // dw1 is written (first chunk), this chunk has landed
+    const unsigned char* bp = wst + (size_t)(ch & 1) * ns * pb + b_off;
+    for (int mf = w.mw; mf < mfr; mf += w.mws) {
+      float m[NF_MAX][4], m_lo[NF_MAX][4];
+#pragma unroll
+      for (int j = 0; j < NF_MAX; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) m[j][i] = m_lo[j][i] = 0.f;
+      const int p = min(mf * 16 + (w.lane & 15), M1 - 1);
+      warp_product<T, false>(D + (size_t)p * pb + (w.lane >> 4) * 16, bp, pb, w.nf, ksteps, m, m_lo);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int pp = mf * 16 + w.g() + 8 * h;
+        if (pp >= M1) continue;
+        const int pr = pp / ew, gr = r0 - r + pr, gc = c0 - r + pp - pr * ew;
+        const bool inside = gr >= 0 && gr < a.H && gc >= 0 && gc < a.W;
+        T* o = reinterpret_cast<T*>(X + (size_t)pp * pb);
+#pragma unroll
+        for (int j = 0; j < NF_MAX; ++j) {
+          if (j >= w.nf) break;
+          const int co = ch * ns + (w.j0 + j) * 8 + 2 * w.t();
+          const float y0 = m_lo[j][2 * h] + m[j][2 * h] + e.b1[co];
+          const float y1 = m_lo[j][2 * h + 1] + m[j][2 * h + 1] + e.b1[co + 1];
+          store2(o + co, inside ? fmaxf(y0, 0.f) : 0.f, inside ? fmaxf(y1, 0.f) : 0.f);
+        }
+      }
+    }
+    __syncthreads();  // the stage is refilled next; the mid is whole after the last
+  }
+  depthwise_k<T, false>(k, X, ew, C, cpad, pb, e.dwk2, D, th, tw);
+  // pw2: one tap on dw2 (rows of tw pixels) over the block's slice; the
+  // routine's first barrier orders dw2's writes before its reads
+  tap_gemm<T, false>(w.a_row(D, tw, tw, th * tw), tw, 1, 1, static_cast<const unsigned char*>(e.pk2) + n0 * rb,
+                     0, ns, cpad, wst, w, acc, acc_lo);
+}
+
+// K3 (and K4, with one sep edge): one DAG block. A block owns a th x tw
+// tile of one image and an ns-channel slice of the outputs (blockIdx.z =
+// image * slices + slice). Each edge's products accumulate from zero in
+// fp32 registers; between two edges with products a thread parks its sums
+// in its own shared-memory slots (no barrier), so that no accumulators
+// are live through the next edge's stage 1. The epilogue adds the parked
+// sums, the biases and the skip sources, rounds once and writes the slice.
+// One instance for each warp-group count NG (= a.ng): with one group the
+// registers are held to 168 a thread, so that three 128-thread blocks
+// share an SM where the shared memory allows; with two, one 256-thread
+// block takes what it needs (PERF.md §6).
+template <typename T, int NG>
+__global__ void __launch_bounds__(MMA_MWARPS * 32 * NG, NG == 1 ? 3 : 1) block_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int EB = sizeof(T);
+  const int slices = a.O8 / a.ns;
+  const int n = blockIdx.z / slices, n0 = (blockIdx.z % slices) * a.ns;
+  const int r0 = blockIdx.y * a.th, c0 = blockIdx.x * a.tw;
+  const int C = a.C, cpad = dense_cpad(C, EB), pb = dense_pitch(C, EB) * EB;
+  unsigned char* space = smem;
+  unsigned char* wst = smem + (size_t)space_rows(a) * pb;
+  // slot (j * 4 + i) of thread x at stash[(j * 4 + i) * blockDim.x + x]
+  float* stash = reinterpret_cast<float*>(wst + 2 * (size_t)a.ns * pb);
+  const WarpTile w(a.th * a.tw, a.ns, a.ng, pb);
+
+  float acc[NF_MAX][4], acc_lo[NF_MAX][4];
+  int left = product_edges(a);
+  bool parked = false;
+  for (int ei = 0; ei < a.n_edges; ++ei) {
+    const Edge& e = a.e[ei];
+    if (e.kind == SKIP) continue;
+#pragma unroll
+    for (int j = 0; j < NF_MAX; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[j][i] = acc_lo[j][i] = 0.f;
+    if (e.kind == DIL) {
+      const int R = e.dil * (e.k / 2), ww = a.tw + 2 * R;
+      load_raw_window<T>(e, n, a.H, a.W, C, r0 - R, c0 - R, a.th + 2 * R, ww, space);
+      tap_gemm<T, true>(w.a_row(space, ww, a.tw, a.th * a.tw), ww, e.k, e.dil,
+                        static_cast<const unsigned char*>(e.pk1) + (size_t)n0 * cpad * EB,
+                        (size_t)a.O8 * cpad * EB, a.ns, cpad, wst, w, acc, acc_lo);
+    } else {
+      sep_products<T>(e, a, n, n0, r0, c0, space, wst, w, acc, acc_lo);
+    }
+    if (--left > 0) {
+#pragma unroll
+      for (int j = 0; j < NF_MAX; ++j) {
+        if (j >= w.nf) break;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float& slot = stash[(j * 4 + i) * blockDim.x + threadIdx.x];
+          slot = (parked ? slot : 0.f) + acc_lo[j][i] + acc[j][i];
+        }
+      }
+      parked = true;
+    }
+  }
+  if (product_edges(a) == 0) {
+#pragma unroll
+    for (int j = 0; j < NF_MAX; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[j][i] = acc_lo[j][i] = 0.f;
+  }
+
+  // epilogue: lane holds rows g, g + 8 and channel pair 2t, 2t + 1 of each fragment
+  T* out = static_cast<T*>(a.out) + (size_t)n * a.out_img_stride;
+  const bool pairs = (a.out_ps % 2 == 0) && (a.out_img_stride % 2 == 0) &&
+                     reinterpret_cast<uintptr_t>(a.out) % (2 * EB) == 0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int pp = w.mw * 16 + w.g() + 8 * h;
+    const int gr = r0 + pp / a.tw, gc = c0 + pp % a.tw;
+    if (pp >= a.th * a.tw || gr >= a.H || gc >= a.W) continue;
+    const size_t pix = (size_t)gr * a.W + gc;
+    T* o = out + pix * a.out_ps;
+#pragma unroll
+    for (int j = 0; j < NF_MAX; ++j) {
+      if (j >= w.nf) break;
+      const int co = n0 + (w.j0 + j) * 8 + 2 * w.t();
+      if (co >= C) continue;
+      float y0 = acc_lo[j][2 * h] + acc[j][2 * h];
+      float y1 = acc_lo[j][2 * h + 1] + acc[j][2 * h + 1];
+      if (parked) {
+        y0 += stash[(j * 4 + 2 * h) * blockDim.x + threadIdx.x];
+        y1 += stash[(j * 4 + 2 * h + 1) * blockDim.x + threadIdx.x];
+      }
+      for (int ei = 0; ei < a.n_edges; ++ei) {
+        const Edge& e = a.e[ei];
+        if (e.kind == SKIP) {
+          const T* s = static_cast<const T*>(e.src) + n * e.img_stride + pix * e.ps + co;
+          y0 += Cvt<T>::to(s[0]);
+          if (co + 1 < C) y1 += Cvt<T>::to(s[1]);
+        } else {
+          const float* b = e.kind == SEP ? e.b2 : e.b1;
+          y0 += b[co];
+          y1 += b[co + 1];
+        }
+      }
+      if (pairs && co + 1 < C) {
+        store2(o + co, y0, y1);
+      } else {
+        o[co] = Cvt<T>::from(y0);
+        if (co + 1 < C) o[co + 1] = Cvt<T>::from(y1);
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------ launches
+
+int launch_kernel(const void* kernel, const Args& a, dim3 grid, int threads, void* stream) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((a.W + a.tw - 1) / a.tw, (a.H + a.th - 1) / a.th, a.N);
   void* params[] = {const_cast<Args*>(&a)};
-  err = cudaLaunchKernel(kernel, grid, dim3(THREADS), params, a.smem,
+  err = cudaLaunchKernel(kernel, grid, dim3(threads), params, a.smem,
                          static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
+int launch_stage(const Args& a, void* stream) {
+  if (a.th <= 0 || a.tw <= 0 || a.tw % PX || a.O8 % OG || a.O8 < a.C || a.C <= 0 ||
+      (size_t)a.smem < stage_smem(a) || a.smem > SMEM_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const void* kernel = a.is_bf16 ? (const void*)sep_stage_kernel<__nv_bfloat16>
+                                 : (const void*)sep_stage_kernel<float>;
+  const dim3 grid((a.W + a.tw - 1) / a.tw, (a.H + a.th - 1) / a.th, a.N);
+  return launch_kernel(kernel, a, grid, THREADS, stream);
+}
+
+// K3, K4 and K6 share their plan's checks: a tile of at most 64 pixels,
+// an N-slice of whole n8 fragments that divides O8, a grant that covers
+// the carve-up.
+bool mma_plan_ok(const Args& a) {
+  const int M = a.th * a.tw;
+  return a.th > 0 && a.tw > 0 && M <= MMA_MWARPS * 16 && a.ng >= 1 && a.ng <= MMA_GROUPS &&
+         a.C > 0 && a.O8 % OG == 0 && a.O8 >= a.C && a.ns > 0 && a.ns % OG == 0 &&
+         a.ns <= OG * NF_MAX && a.O8 % a.ns == 0 && (size_t)a.smem >= block_smem(a) &&
+         a.smem <= SMEM_MAX;
+}
+
+dim3 mma_grid(const Args& a) {
+  return dim3((a.W + a.tw - 1) / a.tw, (a.H + a.th - 1) / a.th, a.N * (a.O8 / a.ns));
+}
+
+int mma_threads(const Args& a) { return (a.th * a.tw + 15) / 16 * a.ng * 32; }
+
 int launch_dense(const Args& a, void* stream) {
   const Edge& e = a.e[0];
-  const int M = a.th * a.tw;
-  if (a.th <= 0 || a.tw <= 0 || M > DENSE_MWARPS * 16 || a.ng < 1 || a.ng > DENSE_GROUPS ||
-      a.C <= 0 || a.O8 % OG || a.O8 < a.C ||
-      a.ns <= 0 || a.ns % OG || a.ns > OG * NF_MAX || a.O8 % a.ns || e.kind != DIL || e.k <= 0 ||
-      e.dil <= 0 || e.w2 == nullptr || (size_t)a.smem < dense_smem(a) || a.smem > SMEM_MAX)
+  if (a.n_edges != 1 || !mma_plan_ok(a) || e.kind != DIL || e.k <= 0 || e.dil <= 0 ||
+      e.pk1 == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   const void* kernel = a.is_bf16 ? (const void*)dense_stage_kernel<__nv_bfloat16>
                                  : (const void*)dense_stage_kernel<float>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((a.W + a.tw - 1) / a.tw, (a.H + a.th - 1) / a.th, a.N * (a.O8 / a.ns));
-  void* params[] = {const_cast<Args*>(&a)};
-  err = cudaLaunchKernel(kernel, grid, dim3((M + 15) / 16 * a.ng * 32), params, a.smem,
-                         static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return launch_kernel(kernel, a, mma_grid(a), mma_threads(a), stream);
+}
+
+int launch_block(const Args& a, bool one_sep, void* stream) {
+  if (a.n_edges < 1 || a.n_edges > 2 || !mma_plan_ok(a)) return static_cast<int>(cudaErrorInvalidValue);
+  for (int i = 0; i < a.n_edges; ++i) {
+    const Edge& e = a.e[i];
+    // a sep edge's depthwise gives each thread one channel pair and two pixels of a row
+    const bool ok = e.kind == SKIP ||
+                    (e.kind == SEP && (e.k == 3 || e.k == 5) && e.pk1 && e.pk2 && e.dwk1 && e.dwk2 &&
+                     dense_cpad(a.C, elem_bytes(a)) / 2 <= mma_threads(a) && a.tw % 2 == 0) ||
+                    (e.kind == DIL && e.k > 0 && e.dil > 0 && e.pk1);
+    if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (one_sep && (a.n_edges != 1 || a.e[0].kind != SEP)) return static_cast<int>(cudaErrorInvalidValue);
+  const void* kernel = a.is_bf16 ? (a.ng == 1 ? (const void*)block_kernel<__nv_bfloat16, 1>
+                                              : (const void*)block_kernel<__nv_bfloat16, 2>)
+                                 : (a.ng == 1 ? (const void*)block_kernel<float, 1>
+                                              : (const void*)block_kernel<float, 2>);
+  return launch_kernel(kernel, a, mma_grid(a), mma_threads(a), stream);
 }
 
 }  // namespace
 
 // Each entry point launches one kernel on `stream` and returns
 // cudaGetLastError() after the launch (0 on success); a shared-memory
-// grant below the kernel's carve-up, or a tile it does not take, returns
+// grant below the kernel's carve-up, or a plan it does not take, returns
 // cudaErrorInvalidValue without launching.
-extern "C" int add_cell_block(const Args* a, void* stream) {
-  return a->is_bf16 ? launch((const void*)block_kernel<__nv_bfloat16>, *a, block_smem(*a), stream)
-                    : launch((const void*)block_kernel<float>, *a, block_smem(*a), stream);
-}
+extern "C" int add_cell_block(const Args* a, void* stream) { return launch_block(*a, false, stream); }
 
-extern "C" int add_cell_sep_fused(const Args* a, void* stream) {
-  return a->is_bf16
-             ? launch((const void*)sep_fused_kernel<__nv_bfloat16>, *a, edge_smem(*a), stream)
-             : launch((const void*)sep_fused_kernel<float>, *a, edge_smem(*a), stream);
-}
+extern "C" int add_cell_sep_fused(const Args* a, void* stream) { return launch_block(*a, true, stream); }
 
-extern "C" int add_cell_sep_stage(const Args* a, void* stream) {
-  return a->is_bf16
-             ? launch((const void*)sep_stage_kernel<__nv_bfloat16>, *a, stage_smem(*a), stream)
-             : launch((const void*)sep_stage_kernel<float>, *a, stage_smem(*a), stream);
-}
+extern "C" int add_cell_sep_stage(const Args* a, void* stream) { return launch_stage(*a, stream); }
 
 extern "C" int add_cell_dense_stage(const Args* a, void* stream) { return launch_dense(*a, stream); }
 
@@ -837,10 +1020,10 @@ extern "C" int add_cell_dense_stage(const Args* a, void* stream) { return launch
 // and ctypes structure are checked against both.
 extern "C" long long add_cell_smem_bytes(int which, const Args* a) {
   switch (which) {
-    case 0: return (long long)block_smem(*a);
-    case 1: return (long long)edge_smem(*a);
+    case 0:
+    case 1:
+    case 3: return (long long)block_smem(*a);
     case 2: return (long long)stage_smem(*a);
-    case 3: return (long long)dense_smem(*a);
     default: return -1;
   }
 }

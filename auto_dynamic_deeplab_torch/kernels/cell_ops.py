@@ -6,10 +6,11 @@ gives their bound and design) work on the port's states as they are,
 NCHW logical in channels_last memory, so one pixel's C channels are
 contiguous. This module holds, for each kernel, its plain PyTorch version
 (``*_reference``), its ctypes wrapper with a ``launches`` counter, and its
-plan (the tile and the shared-memory bytes, against 227 KB a block):
+plan (the tile, the shared-memory bytes against 227 KB a block, and for
+the tensor-core kernels the output-channel slice and warp groups):
 
   K3 ``block_stage``  one DAG block: 1-2 edges (sep, dil, skip), fp32 sum
-  K4 ``sep_fused``    one whole SepConv edge, stage 1 recomputed on a halo
+  K4 ``sep_fused``    one whole SepConv edge (K3's kernel with that edge)
   K5 ``sep_stage``    one dw -> pw -> BN stage (two of them make a SepConv)
   K6 ``dense_stage``  one DilConv edge
 
@@ -53,38 +54,56 @@ EDGE_KINDS = {
 _KIND_CODE = {"skip": 0, "sep": 1, "dil": 2}
 
 SMEM_LIMIT = 232448  # 227 KB: the most shared memory one block may have on Hopper
-# Tiles (rows, columns) in order of preference. K3 and K4 recompute
-# SepConv's stage 1 on a k//2 halo, so they stop at 8x8 (at most 2.25x the
-# stage-1 work for sep5); the single-pass K5 and K6 only reload their
-# halo and may shrink further.
-RECOMPUTE_TILES = ((8, 16), (8, 8))
+# K5 (CUDA cores): tiles (rows, columns) in order of preference.
 STAGE_TILES = ((8, 16), (8, 8), (4, 8), (4, 4))
+# K3/K4 (tensor cores): one warp per 16 tile pixels, 4 of them, times one
+# or two warp groups. They recompute SepConv's stage 1 on a k//2 halo, so
+# they keep the 8x8 tile (at most 2.25x the stage-1 pixels, for sep5).
+BLOCK_TILES = ((8, 8),)
+# Registers a thread of K3's kernel holds, by dtype and warp groups (ptxas,
+# PERF.md §6): three 128-thread blocks an SM, or one of 256 threads.
+BLOCK_REGS = {(torch.float32, 1): 168, (torch.bfloat16, 1): 167,
+              (torch.float32, 2): 244, (torch.bfloat16, 2): 239}
+# A K3 block's time with one warp group against two, where one block
+# fills an SM either way (fitted on the card, PERF.md §6)
+ONE_GROUP_SLOWDOWN = 1.3
 # K6 (tensor-core implicit GEMM): one warp per 16 tile pixels, at most 4.
 # The tiles of 8 and 4 pixels leave part of the mma's 16 rows idle; they
 # are kept so that every width the CUDA-core K6 took still has a plan.
 DENSE_TILES = ((8, 8), (4, 8), (2, 8), (2, 4), (1, 4))
 DENSE_NS_MAX = 40  # output channels a block computes: 5 n8 fragments a warp
-SM_COUNT = 132     # the H100's SMs: K6's grid should have at least this many blocks
+SM_COUNT = 132     # the H100's SMs: the grids of K3, K4 and K6 should have at least this many blocks
 SM_SMEM = 233472   # shared memory of one H100 SM (228 KB)
+# K3's plan model, in fp32 CUDA-core depthwise taps: a tensor-core
+# multiply-add (bf16 mma.sync; fp32 as three tf32 mmas at half the bf16
+# rate), and a block's fixed cost (copies, barriers and their latencies;
+# fitted on the card, PERF.md §6: a level-1 block takes ~47 µs whatever
+# its slice, against ~1 µs for each output channel of an fp32 dil5)
+TC_COST = {torch.bfloat16: 1 / 8, torch.float32: 3 / 4}
+BLOCK_FIXED = 2.0e6
 
 
 class Plan(NamedTuple):
     tile: Tuple[int, int]
     smem: int
-    ns: int = 0  # K6: output channels a block computes (the N-slice)
-    ng: int = 1  # K6: warp groups that split the N-slice's fragments
+    ns: int = 0  # K3/K4/K6: output channels a block computes (the N-slice)
+    ng: int = 1  # K3/K4/K6: warp groups that split the N-slice's fragments
 
 
 class SepStageWeights(NamedTuple):
     """One folded dw -> pw -> BN stage (sep_stage_weights, cell_ops.py:846):
     dwk (C, k*k) fp32 depthwise taps; pw (C, O8) the pointwise (O, C) weight
     with the BN scale folded in fp32, cast to the state dtype, transposed
-    and zero-padded to O8 = O rounded up to 8; bias (O8,) fp32."""
+    and zero-padded to O8 = O rounded up to 8; bias (O8,) fp32. packed
+    (1, O8, Cpad) holds pw with the input channels innermost, zero-padded
+    to Cpad (``dense_cpad``): the tensor cores' B operand as one tap, which
+    K3 and K4 read; K5 and the plain version read pw."""
 
     dwk: torch.Tensor
     pw: torch.Tensor
     bias: torch.Tensor
     k: int
+    packed: torch.Tensor
 
 
 class DenseWeights(NamedTuple):
@@ -93,7 +112,7 @@ class DenseWeights(NamedTuple):
     fp32, cast to the state dtype, output channels innermost and padded to
     O8; bias (O8,) fp32. packed (k*k, O8, Cpad) holds the same values with
     the input channels innermost, zero-padded to Cpad (``dense_cpad``): the
-    tensor cores' B operand, which K6 reads; K3 and the plain version read q."""
+    tensor cores' B operand, which K3 and K6 read; the plain version reads q."""
 
     q: torch.Tensor
     bias: torch.Tensor
@@ -110,7 +129,7 @@ def _r16(n: int) -> int:
 
 
 def _window_bytes(h: int, w: int, C: int, eb: int) -> int:
-    return _r16(h * w * (C | 1) * eb)  # odd channel pitch, as the kernels
+    return _r16(h * w * (C | 1) * eb)  # odd channel pitch, as K5
 
 
 def _elem_bytes(dtype: torch.dtype) -> int:
@@ -119,82 +138,75 @@ def _elem_bytes(dtype: torch.dtype) -> int:
     return torch.finfo(dtype).bits // 8
 
 
-def _edge_bytes(name: str, C: int, eb: int, th: int, tw: int) -> int:
-    kind, k, dil = EDGE_KINDS[name]
-    if kind == "sep":
-        r = k // 2
-        return _window_bytes(th + 4 * r, tw + 4 * r, C, eb) + _window_bytes(th + 2 * r, tw + 2 * r, C, eb)
-    if kind == "dil":
-        reach = dil * (k // 2)
-        return _window_bytes(th + 2 * reach, tw + 2 * reach, C, eb)
-    return 0
-
-
-def _first_fit(tiles, smem_of) -> Optional[Plan]:
-    for th, tw in tiles:
-        smem = smem_of(th, tw)
-        if smem <= SMEM_LIMIT:
-            return Plan((th, tw), smem)
-    return None
-
-
-def plan_block(names: Sequence[str], C: int, dtype: torch.dtype) -> Optional[Plan]:
-    """K3's tile for a block of these active edges: an fp32 sum tile plus
-    the largest edge's working space (edges run one after another). None
-    when an edge is not sep/dil/skip or nothing fits."""
-    if not names or len(names) > 2 or any(n not in EDGE_KINDS for n in names):
-        return None
-    eb = _elem_bytes(dtype)
-    return _first_fit(
-        RECOMPUTE_TILES,
-        lambda th, tw: _r16(th * tw * C * 4) + max(_edge_bytes(n, C, eb, th, tw) for n in names),
-    )
-
-
-def plan_sep_fused(name: str, C: int, dtype: torch.dtype) -> Optional[Plan]:
-    """K4's tile: input window with a 2(k//2) halo plus the stage-1 region."""
-    if EDGE_KINDS.get(name, ("",))[0] != "sep":
-        raise ValueError(f"{name} is not a SepConv")
-    eb = _elem_bytes(dtype)
-    return _first_fit(RECOMPUTE_TILES, lambda th, tw: _edge_bytes(name, C, eb, th, tw))
-
-
 def plan_sep_stage(name: str, C: int, dtype: torch.dtype) -> Optional[Plan]:
     """K5's tile: input window with a k//2 halo plus the depthwise tile."""
     if EDGE_KINDS.get(name, ("",))[0] != "sep":
         raise ValueError(f"{name} is not a SepConv")
     eb, r = _elem_bytes(dtype), EDGE_KINDS[name][1] // 2
-    return _first_fit(
-        STAGE_TILES,
-        lambda th, tw: _window_bytes(th + 2 * r, tw + 2 * r, C, eb) + _window_bytes(th, tw, C, eb),
-    )
+    for th, tw in STAGE_TILES:
+        smem = _window_bytes(th + 2 * r, tw + 2 * r, C, eb) + _window_bytes(th, tw, C, eb)
+        if smem <= SMEM_LIMIT:
+            return Plan((th, tw), smem)
+    return None
 
 
 def dense_cpad(C: int, dtype: torch.dtype) -> int:
-    """K6's input channels, padded to one 32-byte mma depth step (16 bf16, 8 fp32)."""
+    """The mma layout's input channels, padded to one 32-byte depth step (16 bf16, 8 fp32)."""
     q = 32 // _elem_bytes(dtype)
     return -(-C // q) * q
 
 
+def _edge_rows(name: str, th: int, tw: int) -> int:
+    """Pixels of one edge's working space (csrc edge_rows): a sep edge's
+    input window with a 2(k//2) halo plus its stage-1 region, a dil edge's
+    window with its dilated halo."""
+    kind, k, dil = EDGE_KINDS[name]
+    if kind == "sep":
+        r = k // 2
+        return (th + 4 * r) * (tw + 4 * r) + (th + 2 * r) * (tw + 2 * r)
+    if kind == "dil":
+        reach = dil * (k // 2)
+        return (th + 2 * reach) * (tw + 2 * reach)
+    return 0
+
+
+def _mma_smem(names, C: int, dtype: torch.dtype, th: int, tw: int, ns: int, ng: int = 1) -> int:
+    """K3/K4/K6's carve-up (csrc block_smem): the largest edge's space plus
+    two stages of ns weight rows, each row Cpad channels and 16 bytes of
+    skew; with two edges that have products, K3's stash: 4 fp32 for each
+    n8 fragment a thread holds, for each of the block's threads."""
+    rows = max(_edge_rows(n, th, tw) for n in names)
+    stash = 0
+    if sum(EDGE_KINDS[n][0] != "skip" for n in names) > 1:
+        threads = -(-th * tw // 16) * ng * 32
+        stash = threads * 4 * -(-(ns // 8) // ng) * 4
+    return (rows + 2 * ns) * (dense_cpad(C, dtype) * _elem_bytes(dtype) + 16) + stash
+
+
 def _dense_smem(name: str, C: int, dtype: torch.dtype, th: int, tw: int, ns: int) -> int:
-    """The raw window with its dilated halo plus two stages of ns weight
-    rows, each row Cpad channels and 16 bytes of skew (csrc dense_smem)."""
-    _, k, dil = EDGE_KINDS[name]
-    eb, reach = _elem_bytes(dtype), dil * (k // 2)
-    return ((th + 2 * reach) * (tw + 2 * reach) + 2 * ns) * (dense_cpad(C, dtype) * eb + 16)
+    return _mma_smem((name,), C, dtype, th, tw, ns)
 
 
 def dense_blocks(plan: Plan, C: int, N: int, H: int, W: int) -> int:
-    """K6's grid: tiles x images x N-slices."""
+    """The grid of K3, K4 and K6: tiles x images x N-slices."""
     th, tw = plan.tile
     return -(-H // th) * -(-W // tw) * N * (-(-C // 8) * 8 // plan.ns)
 
 
-def _dense_resident(plan: Plan) -> int:
-    """K6 blocks of this plan one SM holds at once, by shared memory (228 KB
-    an SM, 1 KB of it reserved a block) and threads (2048 an SM)."""
+def _resident(plan: Plan, regs: int = 0) -> int:
+    """Blocks of this plan one SM holds at once, by shared memory (228 KB
+    an SM, 1 KB of it reserved a block), threads (2048 an SM) and, given
+    the kernel's registers a thread, registers (64K an SM, allocated in
+    eights)."""
     threads = -(-plan.tile[0] * plan.tile[1] // 16) * plan.ng * 32
-    return max(1, min(SM_SMEM // (plan.smem + 1024), 2048 // threads))
+    by_regs = 65536 // (threads * -(-regs // 8) * 8) if regs else 2048 // threads
+    return max(1, min(SM_SMEM // (plan.smem + 1024), 2048 // threads, by_regs))
+
+
+def _slices(C: int):
+    """N-slices in order of width: multiples of 8 that divide O8, at most 40."""
+    o8 = -(-C // 8) * 8
+    return [ns for ns in range(min(o8, DENSE_NS_MAX), 0, -8) if o8 % ns == 0]
 
 
 @functools.lru_cache(maxsize=None)  # pure, and called on every launch
@@ -211,12 +223,11 @@ def plan_dense_stage(name: str, C: int, dtype: torch.dtype, hw: Optional[Tuple[i
     resident on an SM (PERF.md §6: fp32 at C=160, and dil5 at C=80)."""
     if EDGE_KINDS.get(name, ("",))[0] != "dil":
         raise ValueError(f"{name} is not a DilConv")
-    o8 = -(-C // 8) * 8
     fits = [
         Plan((th, tw), smem, ns)
         for th, tw in DENSE_TILES
-        for ns in range(min(o8, DENSE_NS_MAX), 0, -8)
-        if o8 % ns == 0 and (smem := _dense_smem(name, C, dtype, th, tw, ns)) <= SMEM_LIMIT
+        for ns in _slices(C)
+        if (smem := _dense_smem(name, C, dtype, th, tw, ns)) <= SMEM_LIMIT
     ]
     full = [p for p in fits if p.tile[0] * p.tile[1] % 16 == 0]
     fits = full or fits
@@ -226,12 +237,84 @@ def plan_dense_stage(name: str, C: int, dtype: torch.dtype, hw: Optional[Tuple[i
         return fits[0]
 
     def cost(p: Plan) -> int:
-        slots = SM_COUNT * _dense_resident(p)
+        slots = SM_COUNT * _resident(p)
         return -(-dense_blocks(p, C, N, *hw) // slots) * (p.ns + 32)
 
     best = min(fits, key=cost)  # the first of equals: larger tile, wider slice
-    warps = -(-best.tile[0] * best.tile[1] // 16) * _dense_resident(best)
+    warps = -(-best.tile[0] * best.tile[1] // 16) * _resident(best)
     return best._replace(ng=2) if best.ns >= 16 and warps < 12 else best
+
+
+def block_cost(names, C: int, dtype: torch.dtype, th: int, tw: int, ns: int) -> float:
+    """Modelled work of one K3 block, in fp32 depthwise taps: a fixed
+    BLOCK_FIXED, a sep edge's two depthwise passes (stage 1 on the tile
+    plus a k//2 halo), its pw1 over that region for every output channel
+    and its pw2 over the slice; a dil edge's k*k taps over the slice. A
+    tensor-core multiply-add counts TC_COST[dtype] taps."""
+    o8, cpad, tc = -(-C // 8) * 8, dense_cpad(C, dtype), TC_COST[dtype]
+    work = BLOCK_FIXED
+    for name in names:
+        kind, k, _ = EDGE_KINDS[name]
+        if kind == "sep":
+            halo = (th + 2 * (k // 2)) * (tw + 2 * (k // 2))
+            work += (halo + th * tw) * C * k * k + tc * (halo * o8 + th * tw * ns) * cpad
+        elif kind == "dil":
+            work += tc * k * k * th * tw * ns * cpad
+    return work
+
+
+@functools.lru_cache(maxsize=None)  # pure, and called on every launch
+def _plan_block(names: Tuple[str, ...], C: int, dtype: torch.dtype, hw, N: int) -> Optional[Plan]:
+    if not names or len(names) > 2 or any(n not in EDGE_KINDS for n in names):
+        return None
+    sep = any(EDGE_KINDS[n][0] == "sep" for n in names)
+
+    def warps(p: Plan) -> int:  # resident on an SM
+        return _resident(p, BLOCK_REGS[dtype, p.ng]) * p.tile[0] * p.tile[1] // 16 * p.ng
+
+    fits = []
+    for th, tw in BLOCK_TILES:
+        for ns in _slices(C):
+            by_ng = [
+                Plan((th, tw), smem, ns, ng) for ng in (2, 1)
+                # the depthwise gives each thread one channel pair
+                if not (sep and dense_cpad(C, dtype) // 2 > th * tw // 16 * ng * 32)
+                and (smem := _mma_smem(names, C, dtype, th, tw, ns, ng)) <= SMEM_LIMIT
+            ]
+            if by_ng:  # one group only where more of its warps are resident
+                fits.append(max(by_ng, key=warps))
+    if not fits or hw is None:
+        return fits[0] if fits else None
+
+    def cost(p: Plan) -> float:
+        waves = -(-dense_blocks(p, C, N, *hw) // (SM_COUNT * _resident(p, BLOCK_REGS[dtype, p.ng])))
+        return waves * block_cost(names, C, dtype, *p.tile, p.ns) * (ONE_GROUP_SLOWDOWN if p.ng == 1 else 1)
+
+    return min(fits, key=cost)  # the first of equals: the wider slice
+
+
+def plan_block(names: Sequence[str], C: int, dtype: torch.dtype, hw: Optional[Tuple[int, int]] = None,
+               N: int = 1) -> Optional[Plan]:
+    """K3's plan for a block of these active edges: tile, N-slice, warp
+    groups and shared memory (the largest edge's space, edges running one
+    after another, plus the weight stages). None when an edge is not
+    sep/dil/skip or nothing fits. Without ``hw`` the widest slice that
+    fits; with (H, W) and batch N, the one with the least modelled time:
+    waves of resident blocks (registers included) times ``block_cost``,
+    times ONE_GROUP_SLOWDOWN for one warp group. Every slice recomputes a
+    sep edge's stage 1, so a narrower slice buys blocks with work. Each
+    slice takes one warp group where that leaves more warps resident on
+    an SM (three 128-thread blocks against one of 256), else two."""
+    _elem_bytes(dtype)
+    return _plan_block(tuple(names), C, dtype, None if hw is None else tuple(hw), N)
+
+
+def plan_sep_fused(name: str, C: int, dtype: torch.dtype, hw: Optional[Tuple[int, int]] = None,
+                   N: int = 1) -> Optional[Plan]:
+    """K4's plan: K3's for the one sep edge."""
+    if EDGE_KINDS.get(name, ("",))[0] != "sep":
+        raise ValueError(f"{name} is not a SepConv")
+    return plan_block((name,), C, dtype, hw, N)
 
 
 # ------------------------------------------------------------- folding
@@ -241,12 +324,14 @@ def _fold_sep_stage(dw, pw, bn, dtype) -> SepStageWeights:
     C, k = dw.kernel.shape[0], dw.kernel.shape[-1]
     s, b = bn.folded()
     w = (pw.kernel[:, :, 0, 0].float() * s[:, None]).to(dtype)  # (O, C), scale folded in fp32
-    o8 = -(-w.shape[0] // 8) * 8
+    O = w.shape[0]
+    o8 = -(-O // 8) * 8
     return SepStageWeights(
         dwk=dw.kernel.detach().float().reshape(C, k * k).contiguous(),
-        pw=F.pad(w.t(), (0, o8 - w.shape[0])).contiguous(),
-        bias=F.pad(b.float(), (0, o8 - b.shape[0])).contiguous(),
+        pw=F.pad(w.t(), (0, o8 - O)).contiguous(),
+        bias=F.pad(b.float(), (0, o8 - O)).contiguous(),
         k=k,
+        packed=F.pad(w, (0, dense_cpad(C, dtype) - C, 0, o8 - O))[None].contiguous(),
     )
 
 
@@ -346,7 +431,8 @@ class _Edge(ctypes.Structure):
         ("src", ctypes.c_void_p), ("img_stride", ctypes.c_longlong),
         ("ps", ctypes.c_int), ("kind", ctypes.c_int), ("k", ctypes.c_int), ("dil", ctypes.c_int),
         ("dwk1", ctypes.c_void_p), ("w1", ctypes.c_void_p), ("b1", ctypes.c_void_p),
-        ("dwk2", ctypes.c_void_p), ("w2", ctypes.c_void_p), ("b2", ctypes.c_void_p),
+        ("pk1", ctypes.c_void_p), ("dwk2", ctypes.c_void_p), ("b2", ctypes.c_void_p),
+        ("pk2", ctypes.c_void_p),
     ]
 
 
@@ -417,29 +503,33 @@ def _check_weights(tensors, x: torch.Tensor, fn: str):
 def _fill_edge(e: _Edge, x: torch.Tensor, name: str, w, like: torch.Tensor, fn: str):
     """One edge's source and weights: a sep edge's ``w`` is its stages
     (both for K3/K4, the one to run for K5), a dil edge's DenseWeights.
-    Taps and biases are fp32, pointwise and dense weights the state dtype."""
+    Taps and biases are fp32, pointwise and dense weights the state dtype:
+    K5 reads a stage's pw, the tensor-core kernels the packed forms."""
     kind, k, dil = EDGE_KINDS[name]
     e.img_stride, e.ps = _pixel_layout(x, like, f"{fn} source")
     e.src, e.kind, e.k, e.dil = x.data_ptr(), _KIND_CODE[kind], k, dil
     C, o8, f32 = like.shape[1], -(-like.shape[1] // 8) * 8, torch.float32
+    cpad = dense_cpad(C, like.dtype)
     if kind == "sep":
         for i, st in enumerate(w, start=1):
-            shapes = tuple(st.dwk.shape), tuple(st.pw.shape), tuple(st.bias.shape)
-            dtypes = st.dwk.dtype, st.pw.dtype, st.bias.dtype
-            if st.k != k or shapes != ((C, k * k), (C, o8), (o8,)) or dtypes != (f32, like.dtype, f32):
+            shapes = tuple(st.dwk.shape), tuple(st.pw.shape), tuple(st.bias.shape), tuple(st.packed.shape)
+            dtypes = st.dwk.dtype, st.pw.dtype, st.bias.dtype, st.packed.dtype
+            if st.k != k or shapes != ((C, k * k), (C, o8), (o8,), (1, o8, cpad)) or \
+                    dtypes != (f32, like.dtype, f32, like.dtype):
                 raise ValueError(f"{fn}: {name} stage-{i} weights do not fit C={C} {like.dtype}")
-            _check_weights((st.dwk, st.pw, st.bias), like, fn)
+            _check_weights((st.dwk, st.pw, st.bias, st.packed), like, fn)
             setattr(e, f"dwk{i}", st.dwk.data_ptr())
-            setattr(e, f"w{i}", st.pw.data_ptr())
             setattr(e, f"b{i}", st.bias.data_ptr())
+            setattr(e, f"pk{i}", st.packed.data_ptr())
+        e.w1 = w[0].pw.data_ptr()  # K5 runs the first stage it is given
     elif kind == "dil":
-        packed = (k * k, o8, dense_cpad(C, like.dtype))
+        packed = (k * k, o8, cpad)
         if (w.k, w.dil) != (k, dil) or tuple(w.q.shape) != (k * k, C, o8) or tuple(w.bias.shape) != (o8,) \
                 or tuple(w.packed.shape) != packed or (w.q.dtype, w.packed.dtype, w.bias.dtype) != \
                 (like.dtype, like.dtype, f32):
             raise ValueError(f"{fn}: {name} weights do not fit C={C} {like.dtype}")
-        _check_weights((w.q, w.bias, w.packed), like, fn)
-        e.w1, e.b1, e.w2 = w.q.data_ptr(), w.bias.data_ptr(), w.packed.data_ptr()
+        _check_weights((w.bias, w.packed), like, fn)
+        e.b1, e.pk1 = w.bias.data_ptr(), w.packed.data_ptr()
 
 
 def _launch(entry: str, like: torch.Tensor, edges, plan: Plan, out: torch.Tensor,
@@ -484,7 +574,8 @@ def block_stage(edges, out: Optional[torch.Tensor] = None) -> torch.Tensor:
         return y if out is None else out.copy_(y)
     _check_state(x0, "block_stage")
     names = [name for _, name, _ in edges]
-    plan = plan_block(names, x0.shape[1], x0.dtype)
+    N, C, H, W = x0.shape
+    plan = plan_block(names, C, x0.dtype, (H, W), N)
     if plan is None:
         raise _no_plan("block_stage", names, x0.shape[1], x0.dtype)
     out = _new_state(x0) if out is None else out
@@ -498,7 +589,8 @@ def sep_fused(x: torch.Tensor, name: str, w) -> torch.Tensor:
     if x.device.type == "cpu":
         return sep_fused_reference(x, *w)
     _check_state(x, "sep_fused")
-    plan = plan_sep_fused(name, x.shape[1], x.dtype)
+    N, C, H, W = x.shape
+    plan = plan_sep_fused(name, C, x.dtype, (H, W), N)
     if plan is None:
         raise _no_plan("sep_fused", name, x.shape[1], x.dtype)
     out = _new_state(x)

@@ -14,9 +14,11 @@ Phases, each printing JSON lines and raising on failure:
      the flagship's DAG widths (C, H, W) = (40, 129, 257), (80, 65, 129),
      (160, 33, 65), fp32 (TF32 off) and bf16: every block of the flagship
      genotype, a skip+sep and a one-edge block, and each conv op through
-     K4, K5 (two passes) and K6, with the route each block takes; each K6
-     row also gives its grid (blocks), N-split, achieved TFLOP/s, and its
-     and cuDNN's device time by torch.profiler (without the host's share);
+     K4, K5 (two passes) and K6, with the route each block takes; each K3,
+     K4 and K6 row also gives its plan (tile, N-slices, warp groups, grid
+     blocks), achieved TFLOP/s and device time by torch.profiler (without
+     the host's share; K6 also cuDNN's), and each level the sum of K3's
+     times over the flagship's five blocks (one cell);
   5. the flagship ADD (C=2, F=20, B=5, 19 classes, seeded weights and BN
      statistics, fp32) per-exit logits on the card against the same model
      on the CPU at 129x257, with --cell-exec xla and flat;
@@ -50,6 +52,7 @@ import numpy as np
 import torch
 
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, H100 SXM data sheet
+H100_TF32_FLOPS = 495e12  # dense TF32 tensor-core peak; an fp32 product by 3xTF32 takes three
 H100_FP32_FLOPS = 67e12   # float32 outside the tensor cores
 H100_BYTES_PER_S = 3.35e12
 FULL_HW = (1025, 2049)
@@ -96,14 +99,17 @@ def cuda_ms(fn, runs: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, runs: int = 10) -> float:
+def device_ms(fn, runs: int = 10, tries: int = 10):
     """Mean device time of the kernels one call of ``fn`` launches, by
-    torch.profiler: unlike ``cuda_ms``, without the host's share of the call."""
+    torch.profiler: unlike ``cuda_ms``, without the host's share of the
+    call. None (not measured) when every one of ``tries`` sessions
+    recorded fewer kernels than were launched."""
     fn()
     torch.cuda.synchronize()
-    # a profiling session now and then records fewer kernels than were
-    # launched (one call each at least): such a session is run again
-    for _ in range(3):
+    # a profiling session now and then (one in five or six on the H100's
+    # machine) records fewer kernels than were launched (one call each at
+    # least): such a session is run again
+    for _ in range(tries):
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(runs):
                 fn()
@@ -111,7 +117,9 @@ def device_ms(fn, runs: int = 10) -> float:
         kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
         if len(kernels) >= runs and len(kernels) % runs == 0:
             return sum(e.time_range.elapsed_us() for e in kernels) / runs / 1e3
-    raise AssertionError(f"the profiler recorded {len(kernels)} kernels for {runs} calls, three times")
+    print(f"device_ms: the profiler recorded {len(kernels)} kernels for {runs} calls, {tries} times: "
+          "not measured", file=sys.stderr, flush=True)
+    return None
 
 
 def bound(flops: float, nbytes: float, peak_flops: float):
@@ -142,49 +150,67 @@ def entropy_bound(n, c, h, w, in_bytes):
 
 
 def _edge_flops(name, c):
-    """FLOP a pixel of one primitive at C in = C out (a multiply-add is 2)."""
+    """(FLOP on the CUDA cores, FLOP of products) a pixel of one primitive
+    at C in = C out, a multiply-add counting 2: depthwise taps and pools on
+    the CUDA cores in fp32, pointwise and dense products on the tensor cores."""
     if name.startswith("sep_conv"):
         k = int(name[-1])
-        return 2 * (2 * k * k * c + 2 * c * c)
+        return 2 * 2 * k * k * c, 2 * 2 * c * c
     if name.startswith("dil_conv"):
         k = int(name[-1])
-        return 2 * k * k * c * c
-    return 9 * c if name.endswith("pool_3x3") else 0
+        return 0, 2 * k * k * c * c
+    return (9 * c if name.endswith("pool_3x3") else 0), 0
+
+
+def _block_flops(names, c):
+    """(CUDA-core, product) FLOP a pixel of one block: its edges plus one
+    add a value for each extra edge."""
+    cuda = sum(_edge_flops(nm, c)[0] for nm in names) + c * (len(names) - 1)
+    return cuda, sum(_edge_flops(nm, c)[1] for nm in names)
+
+
+def cell_ops_bound(cuda_flops, product_flops, nbytes, dtype):
+    """(ms, 'operations' | 'bytes'): the least time of cell work, the
+    larger of the CUDA cores' time (fp32 rate), the tensor cores' (bf16, or
+    fp32 by 3xTF32 at a third of the TF32 rate; the two units may run at
+    once) and the bytes' time."""
+    tc = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_TF32_FLOPS / 3
+    t_ops = max(cuda_flops / H100_FP32_FLOPS, product_flops / tc)
+    t_bytes = nbytes / H100_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def cell_bound(names, c, h, w, n_sources, dtype):
-    """One block (or one op, with one name): the edges' FLOP plus one add a
-    value for each extra edge; each distinct source read once, the output
-    written once."""
+    """One block (or one op, with one name); each distinct source read
+    once, the output written once."""
     eb = torch.finfo(dtype).bits // 8
-    flops = h * w * (sum(_edge_flops(nm, c) for nm in names) + c * (len(names) - 1))
-    nbytes = (n_sources + 1) * h * w * c * eb
-    return bound(flops, nbytes, H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS)
+    cuda, product = _block_flops(names, c)
+    return cell_ops_bound(h * w * cuda, h * w * product, (n_sources + 1) * h * w * c * eb, dtype)
 
 
 def stage_bound(k, c, h, w, dtype):
     """One dw k x k -> pw stage (K5)."""
     eb = torch.finfo(dtype).bits // 8
-    flops = h * w * (2 * k * k * c + 2 * c * c)
-    return bound(flops, 2 * h * w * c * eb, H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS)
+    return cell_ops_bound(h * w * 2 * k * k * c, h * w * 2 * c * c, 2 * h * w * c * eb, dtype)
 
 
 def dag_totals(genotype, dtype):
-    """FLOP and bytes of the 12 cells' DAGs of the flagship at 1025x2049."""
+    """CUDA-core FLOP, product FLOP and bytes of the 12 cells' DAGs of the
+    flagship at 1025x2049."""
     from auto_dynamic_deeplab_torch.kernels.cell_ops import PRIMITIVES, dag_blocks
     from auto_dynamic_deeplab_torch.models.cell import as_genotype_rows, edge_op_assignment
     from auto_dynamic_deeplab_torch.nas import NETWORK_ARCH
 
     eb = torch.finfo(dtype).bits // 8
     blocks = dag_blocks(edge_op_assignment(as_genotype_rows(genotype)), 5)
-    flops = nbytes = 0
+    cuda = product = nbytes = 0
     for level in NETWORK_ARCH[2]["path"]:
         c, h, w = CELL_SHAPES[level - 1]
         for rows in blocks:
-            names = [PRIMITIVES[p] for _, _, p in rows]
-            flops += h * w * (sum(_edge_flops(nm, c) for nm in names) + c * (len(names) - 1))
+            bc, bp = _block_flops([PRIMITIVES[p] for _, _, p in rows], c)
+            cuda, product = cuda + h * w * bc, product + h * w * bp
             nbytes += (len({j for j, _, _ in rows}) + 1) * h * w * c * eb
-    return flops, nbytes
+    return cuda, product, nbytes
 
 
 def _cell_fns():
@@ -348,6 +374,8 @@ def phase_cells(ctx):
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    if "smi" not in ctx:
+        ctx["smi"] = nvidia_smi_line()
 
     def op(name, c, seed):
         g = torch.Generator().manual_seed(seed)
@@ -369,12 +397,24 @@ def phase_cells(ctx):
                     continue
                 edges = [(xs[i], nm, co.edge_weights(op(nm, c, 10 * bi + i), nm, dtype)
                           if nm != "skip_connect" else None) for i, nm in enumerate(names)]
-                row = _measure(lambda: co.block_stage(edges), lambda: co.block_stage_reference(edges), tol,
-                               f"K3 {dname} C={c} {names}")
+                fn = lambda: co.block_stage(edges)  # noqa: E731
+                row = _measure(fn, lambda: co.block_stage_reference(edges), tol, f"K3 {dname} C={c} {names}")
                 row["bound_ms"], row["bound_by"] = cell_bound(names, c, h, w, len(names), dtype)
+                plan = co.plan_block(names, c, dtype, (h, w), 1)
+                with torch.inference_mode():
+                    dev = device_ms(fn)
+                gflop = h * w * sum(_block_flops(names, c)) / 1e9
                 row.update(kernel="block_stage", dtype=dname, shape=[c, h, w], edges=list(names),
-                           tile=list(co.plan_block(names, c, dtype).tile))
+                           tile=list(plan.tile), ns=plan.ns, slices=-(-c // 8) * 8 // plan.ns, ng=plan.ng,
+                           blocks=co.dense_blocks(plan, c, 1, h, w), device_ms=dev,
+                           device_tflops=gflop / dev if dev else None)
                 rows.append(row)
+            flagship = [r for r in rows if r["kernel"] == "block_stage" and r["dtype"] == dname
+                        and r["shape"][0] == c and tuple(r["edges"]) in CELL_BLOCKS[:5]]
+            dev = [r["device_ms"] for r in flagship]
+            emit({"phase": "k3_per_cell", "dtype": dname, "shape": [c, h, w], "k3_blocks": len(flagship),
+                  "ms": sum(r["ms"] for r in flagship), "device_ms": None if None in dev else sum(dev),
+                  "nvidia_smi": ctx["smi"]})
             for ni, name in enumerate(("sep_conv_3x3", "sep_conv_5x5", "dil_conv_3x3", "dil_conv_5x5")):
                 x, k = xs[0], int(name[-1])
                 wts = co.edge_weights(op(name, c, 100 + ni), name, dtype)
@@ -390,7 +430,7 @@ def phase_cells(ctx):
                 else:
                     mid = co.sep_stage_reference(x, wts[0], True, True)
                     checks += [
-                        ("sep_fused", co.plan_sep_fused(name, c, dtype), lambda: co.sep_fused(x, name, wts),
+                        ("sep_fused", co.plan_sep_fused(name, c, dtype, (h, w), 1), lambda: co.sep_fused(x, name, wts),
                          lambda: co.sep_fused_reference(x, *wts), None,
                          cell_bound([name], c, h, w, 1, dtype)),
                         ("sep_stage", co.plan_sep_stage(name, c, dtype),
@@ -409,13 +449,15 @@ def phase_cells(ctx):
                     row = _measure(fn, ref, tol, f"{kernel} {dname} C={c} {name}", lib)
                     row.update(kernel=kernel, dtype=dname, shape=[c, h, w], op=name, tile=list(plan.tile),
                                bound_ms=bms, bound_by=bby)
-                    if kernel == "dense_stage":
+                    if kernel in ("dense_stage", "sep_fused"):
                         with torch.inference_mode():
-                            dev, lib_dev = device_ms(fn), device_ms(lib)
-                        gflop = h * w * _edge_flops(name, c) / 1e9
+                            dev = device_ms(fn)
+                            if lib is not None:
+                                row["library_device_ms"] = device_ms(lib)
+                        gflop = h * w * sum(_edge_flops(name, c)) / 1e9
                         row.update(blocks=co.dense_blocks(plan, c, 1, h, w), n_split=-(-c // 8) * 8 // plan.ns,
                                    ns=plan.ns, ng=plan.ng, tflops=gflop / row["ms"], device_ms=dev,
-                                   device_tflops=gflop / dev, library_device_ms=lib_dev)
+                                   device_tflops=gflop / dev if dev else None)
                     rows.append(row)
     for row in rows:
         emit({"phase": "cell_kernels", **row})
@@ -439,10 +481,11 @@ def phase_cells(ctx):
         keyed.setdefault("dense_stage", {})[dname] = pick("dense_stage", 160, dname, op="dil_conv_5x5")
     ctx["cells"] = keyed
     for dtype in (torch.float32, torch.bfloat16):
-        flops, nbytes = dag_totals(_flagship_genotype(), dtype)
-        ms, by = bound(flops, nbytes, H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS)
+        cuda, product, nbytes = dag_totals(_flagship_genotype(), dtype)
+        ms, by = cell_ops_bound(cuda, product, nbytes, dtype)
         emit({"phase": "flagship_dag_bound", "dtype": str(dtype).split(".")[-1], "cells": 12,
-              "gflop": flops / 1e9, "gbytes": nbytes / 1e9, "bound_ms": ms, "bound_by": by})
+              "cuda_core_gflop": cuda / 1e9, "product_gflop": product / 1e9, "gbytes": nbytes / 1e9,
+              "bound_ms": ms, "bound_by": by})
 
 
 def _flagship_genotype():

@@ -64,7 +64,7 @@ def main(argv=None):
                 k = int(name[-1])
                 qd = wts.q[:, :, :c].reshape(k, k, c, c).permute(3, 2, 0, 1).contiguous()
                 bd = wts.bias[:c].to(dtype)
-                flops = h * w * _edge_flops(name, c)
+                flops = h * w * sum(_edge_flops(name, c))
                 with torch.inference_mode():
                     ref = co.dense_stage_reference(x, wts).float()
                     lib_ms = device_ms(lambda: F.conv2d(F.relu(x), qd, bd, dilation=2, padding=2 * (k // 2)))
@@ -82,7 +82,7 @@ def main(argv=None):
                             "dtype": dname, "shape": [c, h, w], "op": name, "tile": list(plan.tile),
                             "ns": plan.ns, "ng": plan.ng, "smem": plan.smem, "chosen": plan == chosen,
                             "blocks": co.dense_blocks(plan, c, 1, h, w), "device_ms": ms,
-                            "tflops": flops / ms / 1e9, "library_device_ms": lib_ms, "max_rel_err": rel,
+                            "tflops": flops / ms / 1e9 if ms else None, "library_device_ms": lib_ms, "max_rel_err": rel,
                         }), flush=True)
     print(smi, flush=True)
     return 0

@@ -10,6 +10,8 @@ with one part of ``dense_stage_kernel`` removed by text substitution:
   nowload  no per-tap weight copies after the first tap
   nosync   no per-tap cp.async wait and barriers after the first tap
   nowin    no window copy
+  lb3, lb4 the bf16 instance bounded to 3 or 4 blocks of 256 threads an
+           SM (at most 85 or 64 registers a thread; the others compute right)
 The variants compute wrong values; only their device times (torch.profiler)
 mean something, set beside the whole kernel's at the plan
 ``plan_dense_stage`` picks, on dil5 at the flagship's level-1 and level-3
@@ -38,9 +40,10 @@ from auto_dynamic_deeplab_torch.ops.primitives import OPS  # noqa: E402
 from auto_dynamic_deeplab_torch.utils.initialize import init_params, randomize_bn  # noqa: E402
 
 OUT = ROOT / "build" / "k6_probe"
+K6_DECL = "__global__ void __launch_bounds__(MMA_MWARPS * MMA_GROUPS * 32) dense_stage_kernel(const Args a) {"
 VARIANTS = {
     "whole": [],
-    "nomma": [("dense_mma<T>(f0, nf, acc, acc_lo);", ""), ("dense_mma<T>(f1, nf, acc, acc_lo);", "")],
+    "nomma": [("dense_mma<T, RELU>(f0, nf, acc, acc_lo);", ""), ("dense_mma<T, RELU>(f1, nf, acc, acc_lo);", "")],
     "noldsm": [("dense_load(ap + (s + 1) * 32, bp + (s + 1) * 32, pb, nf, f1);", "(void)0;"),
                ("dense_load(ap + (s + 2) * 32, bp + (s + 2) * 32, pb, nf, f0);", "(void)0;")],
     "nowload": [("load_tap(tap + 1, (tap + 1) & 1);", "(void)0;")],
@@ -48,6 +51,8 @@ VARIANTS = {
                 "    __syncthreads();\n",
                 "    if (tap == 0) {\n      cp_async_wait<1>();\n      __syncthreads();\n    }\n"),
                ("__syncthreads();  // the stage is refilled by the next iteration", "")],
+    "lb3": [(K6_DECL, K6_DECL.replace("MMA_GROUPS * 32)", "MMA_GROUPS * 32, sizeof(T) == 2 ? 3 : 1)"))],
+    "lb4": [(K6_DECL, K6_DECL.replace("MMA_GROUPS * 32)", "MMA_GROUPS * 32, sizeof(T) == 2 ? 4 : 1)"))],
     "nowin": [("if (vec) {", "if (false) {"),
               ("} else {\n    const T* s = reinterpret_cast", "} else if (false) {\n    const T* s = reinterpret_cast")],
 }
@@ -61,8 +66,10 @@ def build(name: str) -> ctypes.CDLL:
         src = src.replace(old, new)
     cu, so = OUT / f"cell_ops_{name}.cu", OUT / f"cell_ops_{name}.so"
     cu.write_text(src)
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)], check=True,
-                   capture_output=True)
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)], check=True,
+                          capture_output=True, text=True)
+    print(json.dumps({"variant": name, "ptxas": [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
+                                                 if "registers" in ln or "spill" in ln]}), flush=True)
     lib = ctypes.CDLL(str(so))
     lib.add_cell_dense_stage.argtypes = [ctypes.POINTER(co._Args), ctypes.c_void_p]
     lib.add_cell_dense_stage.restype = ctypes.c_int

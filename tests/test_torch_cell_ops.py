@@ -203,8 +203,8 @@ FLAGSHIP_ROUTES = {
 def test_routes_at_flagship_widths(key):
     """The plans at the DAG widths of the flagship at 1025x2049: every
     block is one K3 launch, except (sep5, sep5) and (dil5, sep5) at C=160
-    in fp32, whose fused SepConv needs 258 KB a tile; there each sep5 is
-    two K5 passes and the dil5 one K6."""
+    in fp32, whose sep5 needs 266 KB on K3's 8x8 tile at its narrowest
+    slice; there each sep5 is two K5 passes and the dil5 one K6."""
     dtype = {"fp32": torch.float32, "bf16": torch.bfloat16}[key[0]]
     assignment = edge_op_assignment(as_genotype_rows(AUTODEEPLAB_GENOTYPE))
     routes = [pt_cell.block_route([PRIMITIVES[p] for _, _, p in rows], key[1], dtype)
@@ -302,6 +302,101 @@ def test_k6_3xtf32_split_holds_fp32_tolerance():
     scale = ref.abs().max().item()
     err3 = (three.double() - ref).abs().max().item() / scale
     err1 = (conv(xh, wh).double() - ref).abs().max().item() / scale
+    assert err3 <= 1e-4 and err3 * 100 <= err1
+
+
+# ------------------------------------------- K3/K4 (tensor-core) host side
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("c", [5, 12, 40])
+def test_k3_packed_pw_weights_unpack_exactly(c, dtype):
+    """A SepConv stage's packed B operand (1, O8, Cpad) holds pw and the
+    folded pointwise weight exactly, zeros in the padded rows and channels."""
+    torch.manual_seed(c)
+    pm = PT_OPS["sep_conv_3x3"](c, 1)
+    with torch.no_grad():
+        for p in pm.parameters():
+            p.normal_()
+        for bn in (pm.bn1, pm.bn2):
+            bn.mean.normal_()
+            bn.var.uniform_(0.5, 2.0)
+    o8, cpad = -(-c // 8) * 8, pt_cell.dense_cpad(c, dtype)
+    for st, pw, bn in zip(pt_cell.edge_weights(pm, "sep_conv_3x3", dtype), (pm.pw1, pm.pw2), (pm.bn1, pm.bn2)):
+        assert st.packed.shape == (1, o8, cpad) and st.packed.dtype == dtype and st.packed.is_contiguous()
+        assert torch.equal(st.packed[0, :, :c].t(), st.pw)
+        s, _ = bn.folded()
+        assert torch.equal(st.packed[0, :c, :c], (pw.kernel[:, :, 0, 0].float() * s[:, None]).to(dtype))
+        assert not st.packed[:, c:].any() and not st.packed[:, :, c:].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("c", [40, 80, 160])
+def test_k3_plans_at_flagship_widths(c, dtype):
+    """Every flagship block K3 takes fits 227 KB with the grid weighed at
+    its level's size; at levels 2 and 3 its output channels split so that
+    the grid has at least one block for each of the 132 SMs. K4's plan is
+    K3's for its one sep edge."""
+    hw = {40: (129, 257), 80: (65, 129), 160: (33, 65)}[c]
+    assignment = edge_op_assignment(as_genotype_rows(AUTODEEPLAB_GENOTYPE))
+    taken = 0
+    for rows in pt_cell.dag_blocks(assignment, 5):
+        names = [PRIMITIVES[p] for _, _, p in rows]
+        plan = pt_cell.plan_block(names, c, dtype, hw, 1)
+        if plan is None:
+            assert pt_cell.block_route(names, c, dtype) != ("block_stage",)
+            continue
+        taken += 1
+        assert plan.tile == (8, 8) and plan.smem <= pt_cell.SMEM_LIMIT and plan.ng in (1, 2)
+        assert plan.ns % 8 == 0 and (-(-c // 8) * 8) % plan.ns == 0 and plan.ns <= pt_cell.DENSE_NS_MAX
+        assert plan.smem == pt_cell._mma_smem(names, c, dtype, 8, 8, plan.ns, plan.ng)
+        if c >= 80:
+            assert pt_cell.dense_blocks(plan, c, 1, *hw) >= pt_cell.SM_COUNT
+    assert taken == (3 if (c, dtype) == (160, torch.float32) else 5)
+    assert pt_cell.plan_sep_fused("sep_conv_3x3", c, dtype, hw) == pt_cell.plan_block(["sep_conv_3x3"], c, dtype, hw)
+
+
+def test_k3_plans_cover_the_cuda_core_kernels_widths():
+    """Every block and width the CUDA-core K3 (an fp32 sum tile plus the
+    largest edge's (C|1)-pitched windows on an 8x16 or 8x8 tile) took
+    still has a plan: the new K3 refuses nothing new."""
+
+    def window(h, w, c, eb):
+        return -(-h * w * (c | 1) * eb // 16) * 16
+
+    def old_edge(name, c, eb, th, tw):
+        kind, k, dil = pt_cell.EDGE_KINDS[name]
+        if kind == "sep":
+            r = k // 2
+            return window(th + 4 * r, tw + 4 * r, c, eb) + window(th + 2 * r, tw + 2 * r, c, eb)
+        return window(th + 2 * dil * (k // 2), tw + 2 * dil * (k // 2), c, eb) if kind == "dil" else 0
+
+    names = list(pt_cell.EDGE_KINDS)
+    blocks = [(a,) for a in names] + [(a, b) for i, a in enumerate(names) for b in names[i:]]
+    for dtype in (torch.float32, torch.bfloat16):
+        eb = torch.finfo(dtype).bits // 8
+        for block in blocks:
+            old = [c for c in range(1, 1200, 3)
+                   if any(-(-th * tw * c * 4 // 16) * 16 + max(old_edge(n, c, eb, th, tw) for n in block)
+                          <= pt_cell.SMEM_LIMIT for th, tw in ((8, 16), (8, 8)))]
+            assert old and all(pt_cell.plan_block(block, c, dtype) is not None for c in old), block
+
+
+def test_k3_3xtf32_split_holds_fp32_tolerance_on_a_pointwise_product():
+    """K3's fp32 pointwise product, emulated: a depthwise output (either
+    sign, not ReLU'd) and the weights split into tf32 hi + lo, lo*hi +
+    hi*lo + hi*hi summed in fp32, one tap at K = C = 160 over 9x11 pixels,
+    against fp64. It holds relative 1e-4; plain TF32 is far further off."""
+    rng = np.random.RandomState(1)
+    d = torch.from_numpy(rng.randn(99, 160).astype(np.float32))
+    w = torch.from_numpy((rng.randn(160, 160) / 13).astype(np.float32))
+    ref = d.double() @ w.double().t()
+    dh, wh = _tf32(d), _tf32(w)
+    dl, wl = _tf32(d - dh), _tf32(w - wh)
+    three = dl @ wh.t() + dh @ wl.t() + dh @ wh.t()
+    scale = ref.abs().max().item()
+    err3 = (three.double() - ref).abs().max().item() / scale
+    err1 = (dh @ wh.t()).double().sub(ref).abs().max().item() / scale
     assert err3 <= 1e-4 and err3 * 100 <= err1
 
 

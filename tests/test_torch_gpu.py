@@ -104,16 +104,32 @@ def _tol(dtype):
 CELL_SHAPES = [(12, (13, 17), 2, None), (40, (21, 35), 1, 56), (5, (9, 7), 1, None)]
 
 
-@needs_gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", CELL_SHAPES, ids=str)
-@pytest.mark.parametrize("names", [
+# the flagship genotype's five blocks, and K3's cases at small odd sizes
+FLAGSHIP_BLOCKS = [
+    ("dil_conv_5x5", "sep_conv_3x3"), ("sep_conv_3x3", "dil_conv_3x3"), ("sep_conv_3x3", "sep_conv_3x3"),
+    ("sep_conv_5x5", "sep_conv_5x5"), ("dil_conv_5x5", "sep_conv_5x5"),
+]
+K3_CASES = [(names, shape, dtype) for names in [
     ("dil_conv_5x5", "sep_conv_3x3"), ("skip_connect", "sep_conv_5x5"),
     ("sep_conv_3x3", "dil_conv_3x3"), ("dil_conv_3x3",),
-])
+] for shape in CELL_SHAPES for dtype in (torch.float32, torch.bfloat16)] + [
+    # the flagship's level-2 and level-3 widths and sizes at 1025x2049,
+    # written into a concat slice; in fp32 at C=160 no K3 plan fits a
+    # block with a sep5 edge (266 KB), which goes per-op
+    (names, shape, dtype) for shape in [(80, (65, 129), 1, None), (160, (33, 65), 1, None)]
+    for names in FLAGSHIP_BLOCKS for dtype in (torch.float32, torch.bfloat16)
+    if not (dtype == torch.float32 and shape[0] == 160 and "sep_conv_5x5" in names)
+]
+
+
+@needs_gpu
+@pytest.mark.parametrize("names,shape,dtype", K3_CASES, ids=str)
 def test_k3_block_matches_plain_on_gpu(names, shape, dtype):
     torch.backends.cudnn.allow_tf32 = False
     c, hw, n, width = shape
+    if c >= 80:  # at the flagship's levels 2 and 3 the grid fills the SMs
+        plan = pt_cell.plan_block(names, c, dtype, hw, n)
+        assert pt_cell.dense_blocks(plan, c, n, *hw) >= pt_cell.SM_COUNT
     edges = []
     for i, name in enumerate(names):
         x = _state(n, c, hw, dtype, seed=i, width=width)
@@ -201,8 +217,35 @@ def test_k6_every_tile_on_gpu(tile, ns, ng, dtype):
 
 
 @needs_gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ns,ng", [(8, 1), (8, 2), (16, 1), (16, 2)])
+@pytest.mark.parametrize("names", [("dil_conv_5x5", "sep_conv_3x3"), ("skip_connect", "sep_conv_5x5"),
+                                   ("sep_conv_5x5",)])
+def test_k3_every_slice_on_gpu(names, ns, ng, dtype):
+    """K3 (and, with one sep edge, K4) under each N-slice and warp-group
+    count, on a strided C=12 source (O8 = 16: one and two slices) at N=2."""
+    torch.backends.cudnn.allow_tf32 = False
+    c, hw = 12, (13, 17)
+    edges = []
+    for i, name in enumerate(names):
+        x = _state(2, c, hw, dtype, seed=8 + i, width=20)
+        w = pt_cell.edge_weights(_op(name, c, 23 + i), name, dtype) if name != "skip_connect" else None
+        edges.append((x, name, w))
+    (th, tw), = pt_cell.BLOCK_TILES
+    plan = pt_cell.Plan((th, tw), pt_cell._mma_smem(names, c, dtype, th, tw, ns, ng), ns, ng)
+    out = torch.empty(2, *hw, c, device="cuda", dtype=dtype).permute(0, 3, 1, 2)
+    with torch.inference_mode():
+        pt_cell._launch("sep_fused" if len(names) == 1 else "block", edges[0][0], edges, plan, out)
+        ref = pt_cell.block_stage_reference(edges)
+    torch.cuda.synchronize()
+    assert _rel_err(out, ref) <= _tol(dtype)
+
+
+@needs_gpu
 def test_k6_runs_on_the_tensor_cores():
-    """The built library's K6 kernels (bf16 and fp32) hold HMMA instructions."""
+    """The built library's K6 kernels (bf16, fp32) and K3's (which K4
+    launches; bf16, fp32, each with one and two warp groups) hold HMMA
+    instructions."""
     import os
     import shutil
     import subprocess
@@ -212,9 +255,10 @@ def test_k6_runs_on_the_tensor_cores():
     tool = tool if os.path.exists(tool) else shutil.which("cuobjdump")
     assert tool, "cuobjdump ships with the CUDA toolkit"
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, check=True).stdout
-    k6 = [f for f in sass.split("Function : ")[1:] if "dense_stage_kernel" in f.splitlines()[0]]
-    assert len(k6) == 2, [f.splitlines()[0] for f in k6]
-    assert all("HMMA" in f for f in k6)
+    for kernel, instances in (("dense_stage_kernel", 2), ("block_kernel", 4)):
+        found = [f for f in sass.split("Function : ")[1:] if kernel in f.splitlines()[0]]
+        assert len(found) == instances, [f.splitlines()[0] for f in found]
+        assert all("HMMA" in f for f in found), kernel
 
 
 @needs_gpu
@@ -256,16 +300,18 @@ def test_cell_plans_match_the_kernels_carveup():
         for c in (5, 40, 80, 160, 320):
             a = pt_cell._Args()
             a.C, a.is_bf16 = c, int(dtype == torch.bfloat16)
-            blocks = (("dil_conv_5x5", "sep_conv_5x5"), ("skip_connect", "sep_conv_3x3"), ("dil_conv_3x3",))
+            blocks = (("dil_conv_5x5", "sep_conv_5x5"), ("skip_connect", "sep_conv_3x3"), ("dil_conv_3x3",),
+                      ("sep_conv_3x3", "sep_conv_3x3"))
             for names in blocks:
-                plan = pt_cell.plan_block(names, c, dtype)
-                if plan is None:
-                    continue
-                a.n_edges, (a.th, a.tw) = len(names), plan.tile
-                for e, name in zip(a.e, names):
-                    kind, e.k, e.dil = pt_cell.EDGE_KINDS[name]
-                    e.kind = pt_cell._KIND_CODE[kind]
-                assert lib.add_cell_smem_bytes(0, ctypes.byref(a)) == plan.smem, (names, c, dtype)
+                # K3 on its own and with the grid weighed at 33x65 (N-slices included)
+                for plan in (pt_cell.plan_block(names, c, dtype), pt_cell.plan_block(names, c, dtype, (33, 65))):
+                    if plan is None:
+                        continue
+                    a.n_edges, (a.th, a.tw), a.ns, a.ng = len(names), plan.tile, plan.ns, plan.ng
+                    for e, name in zip(a.e, names):
+                        kind, e.k, e.dil = pt_cell.EDGE_KINDS[name]
+                        e.kind = pt_cell._KIND_CODE[kind]
+                    assert lib.add_cell_smem_bytes(0, ctypes.byref(a)) == plan.smem, (names, c, dtype)
             # K6 on its own and with the grid weighed at 33x65 (N-split included)
             k6_at_level3 = lambda *p: pt_cell.plan_dense_stage(*p, (33, 65))  # noqa: E731
             for which, plan_fn, name in ((1, pt_cell.plan_sep_fused, "sep_conv_5x5"),
@@ -277,7 +323,7 @@ def test_cell_plans_match_the_kernels_carveup():
                 if plan is None:
                     continue
                 kind, a.e[0].k, a.e[0].dil = pt_cell.EDGE_KINDS[name]
-                a.e[0].kind, (a.th, a.tw), a.ns = pt_cell._KIND_CODE[kind], plan.tile, plan.ns
+                a.n_edges, a.e[0].kind, (a.th, a.tw), a.ns, a.ng = 1, pt_cell._KIND_CODE[kind], plan.tile, plan.ns, plan.ng
                 assert lib.add_cell_smem_bytes(which, ctypes.byref(a)) == plan.smem, (name, c, dtype)
 
 
