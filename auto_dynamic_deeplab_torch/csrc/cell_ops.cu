@@ -42,7 +42,7 @@
 // run on the CUDA cores in fp32 (67 TFLOP/s). K5 still does every product
 // on the CUDA cores.
 //
-// The tap-GEMM routine (tap_gemm, K3, K4 and K6). An implicit GEMM per
+// The tap-GEMM routine (tap_gemm, tap_gemm.cuh, shared with K1). An implicit GEMM per
 // block: M = the pixels of a th x tw tile (one warp per 16, times 1-2 warp
 // groups that split N), N = an ns-channel slice of the outputs (ns | O8,
 // ns <= 40; the host's plan splits N over blockIdx.z so that the grid
@@ -91,6 +91,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tap_gemm.cuh"
+
 // Mirrored by kernels/cell_ops.py::_Edge / _Args (ctypes). Outside the
 // anonymous namespace: the C entry points take them and must stay external.
 struct Edge {
@@ -127,16 +129,6 @@ constexpr int SMEM_MAX = 232448;
 
 enum { SKIP = 0, SEP = 1, DIL = 2 };
 
-template <typename T> struct Cvt;
-template <> struct Cvt<float> {
-  static __device__ __forceinline__ float to(float v) { return v; }
-  static __device__ __forceinline__ float from(float v) { return v; }
-};
-template <> struct Cvt<__nv_bfloat16> {
-  static __device__ __forceinline__ float to(__nv_bfloat16 v) { return __bfloat162float(v); }
-  static __device__ __forceinline__ __nv_bfloat16 from(float v) { return __float2bfloat16(v); }
-};
-
 __device__ __forceinline__ void load8(const float* w, float (&v)[OG]) {
   const float4 a = __ldg(reinterpret_cast<const float4*>(w));
   const float4 b = __ldg(reinterpret_cast<const float4*>(w) + 1);
@@ -172,16 +164,6 @@ size_t stage_smem(const Args& a) {
   return window_bytes(a.th + 2 * r, a.tw + 2 * r, a.C, elem_bytes(a)) +
          window_bytes(a.th, a.tw, a.C, elem_bytes(a));
 }
-
-// The mma layout: channels padded to one mma depth step of 32 bytes (16
-// bf16, 8 fp32), and a row pitch 16 bytes longer, so that a pitch is an
-// odd multiple of 16 bytes and the 8 rows an ldmatrix reads fall on 8
-// different bank groups.
-__host__ __device__ inline int dense_cpad(int C, int eb) {
-  const int q = 32 / eb;
-  return (C + q - 1) / q * q;
-}
-__host__ __device__ inline int dense_pitch(int C, int eb) { return dense_cpad(C, eb) + 16 / eb; }
 
 // Rows (pixels) of one edge's working space on a th x tw tile: a sep
 // edge's input window with a 2(k//2) halo plus its stage-1 region (tile
@@ -345,184 +327,6 @@ constexpr int MMA_MWARPS = 4;  // warps along M, one per 16 tile pixels: at most
 constexpr int MMA_GROUPS = 2;  // warp groups that split the N-slice: at most 2
 constexpr int NF_MAX = 5;      // n8 fragments a warp holds, so ns <= 40
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, bypassing L1; zero-filled when !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldmatrix_x2(uint32_t& r0, uint32_t& r1, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 3xTF32: x = hi + lo, hi = tf32(x) (round to nearest, ties away), lo =
-// tf32(x - hi); x - hi is exact in fp32, so hi + lo keeps ~22 bits of x
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
-}
-
-__device__ __forceinline__ uint32_t relu_bf16x2(uint32_t x) {
-  __nv_bfloat162 v = *reinterpret_cast<__nv_bfloat162*>(&x);
-  v = __hmax2(v, __float2bfloat162_rn(0.f));
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// The fragments of one 32-byte depth step (16 bf16 / 8 fp32 input
-// channels) of one warp's 16 x (8 nf) product: A from the window at the
-// lane's address, B from the staged weights. The two dtypes share the byte
-// layout of their fragments: an ldmatrix.x4 gives the m16n8k16 bf16 A
-// fragment and the m16n8k8 tf32 one alike, and an x4 over two n8 row
-// blocks gives both B registers of two fragments.
-struct Frags {
-  uint32_t a[4];
-  uint32_t b[NF_MAX][2];
-};
-
-__device__ __forceinline__ void dense_load(const unsigned char* a_ptr, const unsigned char* b_ptr,
-                                           int b_pitch_bytes, int nf, Frags& f) {
-  ldmatrix_x4(f.a, a_ptr);
-#pragma unroll
-  for (int j = 0; j < NF_MAX; j += 2) {
-    if (j >= nf) break;
-    if (j + 1 < nf) {
-      uint32_t r[4];
-      ldmatrix_x4(r, b_ptr + j * 8 * b_pitch_bytes);
-      f.b[j][0] = r[0];
-      f.b[j][1] = r[1];
-      f.b[j + 1][0] = r[2];
-      f.b[j + 1][1] = r[3];
-    } else {
-      ldmatrix_x2(f.b[j][0], f.b[j][1], b_ptr + j * 8 * b_pitch_bytes);
-    }
-  }
-}
-
-// bf16: ReLU (for a DilConv's raw window) on the loaded A fragment, run on
-// the next step's fragments after this step's mmas are issued. fp32 ReLUs
-// and splits inside dense_mma instead: holding split fragments for two
-// steps ran slower (PERF.md §6).
-template <typename T, bool RELU>
-__device__ __forceinline__ void dense_prep(Frags& f) {
-  if constexpr (sizeof(T) == 2 && RELU) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) f.a[i] = relu_bf16x2(f.a[i]);
-  }
-}
-
-// One step's products. fp32: 3xTF32 (A and B split into tf32 high and low
-// halves), the two small terms into their own accumulators, which halves
-// each chain of dependent mmas; the epilogues add the two at the end.
-template <typename T, bool RELU>
-__device__ __forceinline__ void dense_mma(const Frags& f, int nf, float (&acc)[NF_MAX][4],
-                                          float (&acc_lo)[NF_MAX][4]) {
-  if constexpr (sizeof(T) == 2) {
-#pragma unroll
-    for (int j = 0; j < NF_MAX; ++j)
-      if (j < nf) mma_bf16(acc[j], f.a, f.b[j][0], f.b[j][1]);
-  } else {
-    uint32_t ahi[4], alo[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float x = __uint_as_float(f.a[i]);
-      split_tf32(RELU ? fmaxf(x, 0.f) : x, ahi[i], alo[i]);
-    }
-#pragma unroll
-    for (int j = 0; j < NF_MAX; ++j) {
-      if (j >= nf) break;
-      uint32_t bhi[2], blo[2];
-      split_tf32(__uint_as_float(f.b[j][0]), bhi[0], blo[0]);
-      split_tf32(__uint_as_float(f.b[j][1]), bhi[1], blo[1]);
-      mma_tf32(acc_lo[j], alo, bhi[0], bhi[1]);
-      mma_tf32(acc_lo[j], ahi, blo[0], blo[1]);
-      mma_tf32(acc[j], ahi, bhi[0], bhi[1]);
-    }
-  }
-}
-
-// One warp's 16 x (8 nf) product over `ksteps` depth steps of 32 bytes:
-// A rows from a_ptr (the lane's row), B from b_ptr (the lane's weight row)
-// at pitch pb. The next step's fragments are loaded before this step's
-// products, into the other of two register sets (no copies between them).
-template <typename T, bool RELU>
-__device__ __forceinline__ void warp_product(const unsigned char* ap, const unsigned char* bp, int pb,
-                                             int nf, int ksteps, float (&acc)[NF_MAX][4],
-                                             float (&acc_lo)[NF_MAX][4]) {
-  if (nf <= 0) return;
-  Frags f0, f1;
-  dense_load(ap, bp, pb, nf, f0);
-  dense_prep<T, RELU>(f0);
-  for (int s = 0; s < ksteps; s += 2) {
-    if (s + 1 < ksteps) dense_load(ap + (s + 1) * 32, bp + (s + 1) * 32, pb, nf, f1);
-    dense_mma<T, RELU>(f0, nf, acc, acc_lo);
-    if (s + 1 < ksteps) {
-      dense_prep<T, RELU>(f1);
-      if (s + 2 < ksteps) dense_load(ap + (s + 2) * 32, bp + (s + 2) * 32, pb, nf, f0);
-      dense_mma<T, RELU>(f1, nf, acc, acc_lo);
-      if (s + 2 < ksteps) dense_prep<T, RELU>(f0);
-    }
-  }
-}
-
-// Calls f(r, c) for r < rows, c < cols over the block's threads, in the
-// order of i = r * cols + c from threadIdx.x in steps of blockDim.x,
-// without a division inside the loop.
-template <typename F>
-__device__ __forceinline__ void for_2d(int rows, int cols, F f) {
-  const int dr = blockDim.x / cols, dc = blockDim.x % cols;
-  int r = threadIdx.x / cols, c = threadIdx.x % cols;
-  while (r < rows) {
-    f(r, c);
-    r += dr;
-    c += dc;
-    if (c >= cols) {
-      c -= cols;
-      ++r;
-    }
-  }
-}
-
-// rows x Cpad packed weights from global g into a stage at pitch pb, by cp.async
-template <typename T>
-__device__ __forceinline__ void stage_rows(const unsigned char* g, int rows, int cpad,
-                                           unsigned char* d, int pb) {
-  const int rb = cpad * sizeof(T);
-  for_2d(rows, rb / 16, [&](int r, int j) { cp_async16(d + r * pb + j * 16, g + r * rb + j * 16, true); });
-}
-
 // The window of source pixels (r0 + i, c0 + j), i < wh, j < ww, raw (no
 // ReLU) in the mma layout: pixel i * ww + j at that row times the pitch,
 // 0 outside the image and in the pad channels. 16-byte cp.async where the
@@ -561,80 +365,6 @@ __device__ __forceinline__ void load_raw_window(const Edge& e, int n, int H, int
           inside ? s[((size_t)gr * W + gc) * e.ps + c] : Cvt<T>::from(0.f);
     }
   }
-}
-
-// A warp's place in a block's product: m-warp mw (tile pixels [16 mw,
-// 16 mw + 16)) of mws, and the run of nf of the slice's n8 fragments from
-// j0 that its group holds; g() and t() index the lane's accumulator rows
-// and channel pair (worked out where the epilogues need them, so that they
-// hold no registers through the products); pb is the mma layout's row
-// pitch in bytes. a_row(win, ww,
-// tw, M) is the lane's ldmatrix address for tile pixel p (rows past the
-// tile's M pixels repeat the last one) in a window of ww-pixel rows whose
-// origin is the tile's; b_off the lane's weight row and half. The tile's
-// sizes stay in the kernel's parameters, not in registers.
-struct WarpTile {
-  int lane, mw, mws, j0, nf, pb;
-  __device__ WarpTile(int M, int ns, int ng, int pb_) : pb(pb_) {
-    mws = (M + 15) / 16;
-    lane = threadIdx.x % 32;
-    mw = (threadIdx.x / 32) % mws;
-    const int group = threadIdx.x / 32 / mws, per = (ns / 8 + ng - 1) / ng;
-    j0 = group * per;
-    nf = max(0, min(per, ns / 8 - j0));
-  }
-  __device__ int g() const { return lane / 4; }
-  __device__ int t() const { return lane % 4; }
-  __device__ const unsigned char* a_row(const unsigned char* win, int ww, int tw, int M) const {
-    const int p = min(mw * 16 + (lane & 15), M - 1), pr = p / tw, pc = p % tw;
-    return win + (size_t)(pr * ww + pc) * pb + (lane >> 4) * 16;
-  }
-  __device__ int b_off() const {
-    return (j0 * 8 + (lane & 7) + ((lane >> 4) << 3)) * pb + ((lane >> 3) & 1) * 16;
-  }
-};
-
-// The tap-GEMM routine of K3, K4 and K6: acc (+ acc_lo) += the sum over
-// the k x k taps (ta, tb) at dilation dil of A B^T, A the lane's window
-// row a_lane shifted by (ta dil, tb dil) pixels (rows of ww pixels), B the
-// tap's ns packed weight rows, tap t's at g + t * tap_bytes, streamed
-// through the two-stage buffer wst. Every thread of the block calls it
-// (it holds barriers; a warp with nf = 0 only copies), and it ends on a
-// barrier. Copies the caller issued and did not commit land with tap 0's
-// weights.
-template <typename T, bool RELU>
-__device__ __forceinline__ void tap_gemm(const unsigned char* a_lane, int ww, int k, int dil,
-                                         const unsigned char* g, size_t tap_bytes, int ns, int cpad,
-                                         unsigned char* wst, const WarpTile& w,
-                                         float (&acc)[NF_MAX][4], float (&acc_lo)[NF_MAX][4]) {
-  const int kk = k * k, ksteps = cpad * sizeof(T) / 32, b_off = w.b_off();
-  auto load_tap = [&](int tap, int stage) {
-    stage_rows<T>(g + tap * tap_bytes, ns, cpad, wst + (size_t)stage * ns * w.pb, w.pb);
-  };
-  load_tap(0, 0);
-  cp_async_commit();
-  for (int tap = 0; tap < kk; ++tap) {
-    if (tap + 1 < kk) load_tap(tap + 1, (tap + 1) & 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // the window and this tap's weights have landed
-    __syncthreads();
-    const int ta = tap / k, tb = tap % k;
-    warp_product<T, RELU>(a_lane + (size_t)(ta * dil * ww + tb * dil) * w.pb,
-                          wst + (size_t)((tap & 1) * ns) * w.pb + b_off, w.pb, w.nf, ksteps, acc,
-                          acc_lo);
-    __syncthreads();  // the stage is refilled by the next iteration
-  }
-}
-
-__device__ __forceinline__ float2 load2(const float* p) { return *reinterpret_cast<const float2*>(p); }
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-__device__ __forceinline__ void store2(float* p, float x, float y) {
-  *reinterpret_cast<float2*>(p) = make_float2(x, y);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
 }
 
 // dst (dh x dw pixels, mma layout) = round(depthwise K x K of src (mma

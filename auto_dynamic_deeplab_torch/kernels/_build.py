@@ -1,12 +1,15 @@
 """Build the port's CUDA C++ kernels and load them with ctypes.
 
-Each ``csrc/<name>.cu`` exposes a plain C interface. At first use it is
-compiled by ``nvcc`` for ``sm_90a`` into ``build/torch_kernels/`` at the
-root of the checkout (git-ignored), under a name keyed by a hash of the
-source and the flags, so an edited source is rebuilt and an unchanged one
-is reused. No PyTorch headers are included, so a build takes seconds.
-ptxas's register and spill report is kept beside the library as
-``<name>-<hash>.log``.
+Each ``csrc/<name>.cu`` exposes a plain C interface and may include the
+shared device code of ``csrc/*.cuh``. At first use it is compiled by
+``nvcc`` for ``sm_90a`` into ``build/torch_kernels/`` at the root of the
+checkout (git-ignored), under a name keyed by a hash of the source, every
+header and the flags, so an edited source or header is rebuilt and an
+unchanged one is reused. No PyTorch headers are included, so a build
+takes seconds. ptxas's register and spill report is kept beside the
+library as ``<name>-<hash>.log``. ``build_variant`` compiles a copy
+changed by text substitution, for the scripts that time a kernel with one
+part changed.
 """
 from __future__ import annotations
 
@@ -18,7 +21,7 @@ import subprocess
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Sequence, Tuple
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -41,9 +44,15 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def _sources(name: str) -> Dict[str, Path]:
+    """``csrc/<name>.cu`` and every header it may include, by file name."""
+    paths = [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]
+    return {p.name: p for p in paths}
+
+
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in _sources(name).values()))
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -78,3 +87,24 @@ def load_library(name: str) -> ctypes.CDLL:
         if name not in _libs:
             _libs[name] = ctypes.CDLL(str(build(name)))
         return _libs[name]
+
+
+def build_variant(name: str, subs: Sequence[Tuple[str, str]], out_dir: Path, tag: str) -> Tuple[Path, str]:
+    """Compile a copy of ``csrc/<name>.cu`` and the headers, each (old, new)
+    of ``subs`` replaced where ``old`` occurs (exactly once over the source
+    and the headers), into ``out_dir/<name>_<tag>.so``. Returns the library
+    and ptxas's report. Raises when a substitution no longer matches."""
+    texts = {f: p.read_text() for f, p in _sources(name).items()}
+    for old, new in subs:
+        hits = [f for f, text in texts.items() if old in text]
+        if len(hits) != 1 or texts[hits[0]].count(old) != 1:
+            raise RuntimeError(f"variant {tag}: the kernel's text changed; update the substitution {old[:60]!r}")
+        texts[hits[0]] = texts[hits[0]].replace(old, new)
+    src_dir = out_dir / f"{name}_{tag}"
+    src_dir.mkdir(parents=True, exist_ok=True)
+    for f, text in texts.items():
+        (src_dir / f).write_text(text)
+    so = out_dir / f"{name}_{tag}.so"
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(so), str(src_dir / f"{name}.cu")], check=True,
+                          capture_output=True, text=True)
+    return so, proc.stdout + proc.stderr

@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..kernels.stems import fused_stems, stems_reference
+from ..kernels.stems import fused_stems, stem_weights, stems_reference
 from ..ops.aspp import ASPPTrain
 from ..ops.heads import DecoderHead, LowLevelConv
 from ..ops.norm import BatchNorm
@@ -62,16 +62,11 @@ class _Stems(nn.Module):
         tensors) or its plain version (CPU tensors); there is no fallback."""
         if train:
             raise NotImplementedError(
-                "training-mode BN is not ported yet (ROADMAP Queue 1 item 13)"
+                "training-mode BN is not ported yet (ROADMAP Queue 1 item 7)"
             )
         if x.device.type == "cuda":
-            return fused_stems(
-                x,
-                self.stem0_conv.kernel, *self.stem0_bn.folded(),
-                self.stem1_conv.kernel, *self.stem1_bn.folded(),
-                self.stem2_conv.kernel, *self.stem2_bn.folded(),
-                out_dtype=self.dtype or torch.float32,
-            )
+            dtype = self.dtype or torch.float32
+            return fused_stems(x, stem_weights(self, dtype), out_dtype=dtype)
         if x.device.type == "cpu":
             return stems_reference(self, x)
         raise ValueError(f"unsupported device {x.device}")

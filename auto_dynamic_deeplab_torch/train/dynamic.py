@@ -99,12 +99,18 @@ class DynamicInferenceEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    @torch.inference_mode()
     def infer(self, x, threshold: float = 0.0, confidence: str = "edm"):
         """One NHWC input (batch 1). Returns (logits (N, C, H, W),
-        exit_index, latency_s, confidence_value). The latency brackets the
-        device work with synchronizes (reference: cuda.synchronize +
-        perf_counter, ADD.py:380-437)."""
+        exit_index, latency_s, confidence_value), the confidence of the
+        last decision taken, as JAX ``infer`` returns it (nan with one
+        exit). The latency brackets the device work with synchronizes
+        (reference: cuda.synchronize + perf_counter, ADD.py:380-437)."""
+        logits, exit_index, latency, confs = self._infer(x, threshold, confidence)
+        return logits, exit_index, latency, confs[-1] if confs else float("nan")
+
+    @torch.inference_mode()
+    def _infer(self, x, threshold: float, confidence: str):
+        """``infer`` with every decision's confidence, in order."""
         x = torch.as_tensor(x).to(self.device, torch.float32)
         size = tuple(x.shape[1:3])
         self._sync()
@@ -112,12 +118,12 @@ class DynamicInferenceEngine:
 
         carry = x
         logits: Optional[torch.Tensor] = None
-        conf_value = float("nan")
+        confs = []
         exit_index = len(self.exits) - 1
         for k in range(len(self.exits) - 1):
             carry, conf, maybe_logits = self._decide(k, carry, size, confidence, threshold)
-            conf_value = float(conf[0])  # the one scalar readback per decision
-            if self._exits_now(conf_value, confidence, threshold):
+            confs.append(float(conf[0]))  # the one scalar readback per decision
+            if self._exits_now(confs[-1], confidence, threshold):
                 exit_index = k
                 logits = (
                     self._head(self.exits[k], carry, size)
@@ -130,4 +136,4 @@ class DynamicInferenceEngine:
 
         self._sync()
         latency = time.perf_counter() - t0
-        return logits, exit_index, latency, conf_value
+        return logits, exit_index, latency, confs

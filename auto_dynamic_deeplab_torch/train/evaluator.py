@@ -6,7 +6,12 @@ argmax from K2 on CUDA logits. Dynamic mode: per-image early-exit inference
 reporting mIoU, mean latency, fps, early-exit rate and average confidence.
 PyTorch has no device-side ``cond``, so dynamic mode runs the engine's
 segment loop (the JAX package's ``fused=False`` path); the exit decisions
-and mIoU are the same as the fused program's by construction.
+and mIoU are the same as the fused program's by construction. The average
+confidence follows the JAX ``dynamic_inference`` at its default
+(``fused=True``): each image counts its first decision's confidence, which
+is what the fused program returns (its ``descend`` carries the current
+stage's value up), while ``DynamicInferenceEngine.infer`` returns the last
+decision's, as JAX ``infer`` does. The two differ from three exits on.
 """
 from __future__ import annotations
 
@@ -73,7 +78,7 @@ class Evaluation:
         if fused:
             raise NotImplementedError(
                 "the single-program (fused) dynamic inference needs CUDA graphs "
-                "per segment: ROADMAP Queue 1 item 7 (fused_program)"
+                "per segment: ROADMAP Queue 1 item 3 (fused_program)"
             )
         evaluator = Evaluator(self.num_classes, self.device)
         latency = AverageMeter()
@@ -92,9 +97,8 @@ class Evaluation:
                 if not warmed:
                     self.engine.warmup(x.shape, confidence, threshold)
                     warmed = True
-                logits, exit_idx, dt, conf = self.engine.infer(
-                    x, threshold=threshold, confidence=confidence
-                )
+                logits, exit_idx, dt, confs = self.engine._infer(x, threshold, confidence)
+                conf = confs[0] if confs else float("nan")  # the fused program's value
                 pred = logits.argmax(dim=1)[0]  # (N, C, H, W) logits
                 evaluator.add_batch(torch.as_tensor(labels[i]).to(self.device), pred)
                 latency.update(dt)

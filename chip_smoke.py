@@ -7,8 +7,11 @@
 Phases, each printing JSON lines and raising on failure:
   1. device: the card, its power limit and the kernels' build time (every
      csrc/*.cu, one nvcc each, all at once);
-  2. K1 (stems, CUDA C++) against its plain version at the main path's
-     shapes, fp32 (TF32 off) and bf16, with CUDA-event timings;
+  2. K1 (stems, CUDA C++, tensor cores) against its plain version at the
+     main path's shapes and at ragged ones (batch 2 too), fp32 (TF32 off)
+     and bf16, each with its plan (tile, shared memory, blocks); the
+     full-size rows with CUDA-event and profiler (device) times, achieved
+     TFLOP/s and the bound;
   3. K2 (entropy + argmax, Triton) against its plain version;
   4. K3-K6 (the cell kernels, CUDA C++) against their plain versions at
      the flagship's DAG widths (C, H, W) = (40, 129, 257), (80, 65, 129),
@@ -26,8 +29,9 @@ Phases, each printing JSON lines and raising on failure:
      1025x2049 synthetic images: static, --dynamic entropy at thresholds 0
      and 1.01, --dynamic edm, each with --cell-exec xla and flat, then a
      mixed genotype (pools, skip, none) with flat; every kernel's launch
-     count is set to 0 just before each run and read just after, and the
-     flat runs' K3-K6 counts must equal what the routes predict;
+     count is set to 0 just before each run and read just after: K1 once
+     an image (and once for a dynamic run's warm-up), the flat runs' K3-K6
+     counts what the routes predict;
   7. the flagship bf16 engine as bench.py builds it, xla and flat: p50
      early-exit and full-depth latency at 1025x2049, batch 1;
   8. the kernels summary line.
@@ -132,14 +136,23 @@ def _conv_out(n: int) -> int:
     return (n - 1) // 2 + 1
 
 
-def stems_bound(n, h, w, in_bytes, out_bytes, dtype):
+def stems_products(n, h, w):
+    """FLOP of K1's products: stem0 (27 a pixel and channel), stem1 and stem2."""
     h0, w0 = _conv_out(h), _conv_out(w)
     h1, w1 = _conv_out(h0), _conv_out(w0)
-    flops = 2 * n * ((27 * 64 + 576 * 64) * h0 * w0 + 576 * 128 * h1 * w1)
-    weights = 4 * (27 * 64 + 576 * 64 + 576 * 128 + 2 * (64 + 64 + 128))
+    return 2 * n * ((27 * 64 + 576 * 64) * h0 * w0 + 576 * 128 * h1 * w1)
+
+
+def stems_bound(n, h, w, in_bytes, out_bytes, dtype):
+    """K1 runs every product on the tensor cores (stem0 as one K = 32 step,
+    counted at its 27 real products a pixel): the larger of the products
+    at the tensor-core rate (bf16, or fp32 by 3xTF32) and the bytes (the
+    image read, s0 and s1 written, the packed weights read once)."""
+    h0, w0 = _conv_out(h), _conv_out(w)
+    h1, w1 = _conv_out(h0), _conv_out(w0)
+    weights = out_bytes * (64 * 32 + 9 * 64 * 64 + 9 * 128 * 64) + 4 * (64 + 64 + 128)
     nbytes = n * (h * w * 3 * in_bytes + (h0 * w0 * 64 + h1 * w1 * 128) * out_bytes) + weights
-    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS
-    return bound(flops, nbytes, peak)
+    return cell_ops_bound(0, stems_products(n, h, w), nbytes, dtype)
 
 
 def entropy_bound(n, c, h, w, in_bytes):
@@ -264,7 +277,7 @@ def phase_device(ctx):
 
 
 def phase_k1(ctx):
-    from auto_dynamic_deeplab_torch.kernels.stems import fused_stems, stems_reference
+    from auto_dynamic_deeplab_torch.kernels import stems as k1
     from auto_dynamic_deeplab_torch.models.decoded import _Stems
     from auto_dynamic_deeplab_torch.utils.initialize import init_params, randomize_bn
 
@@ -274,11 +287,11 @@ def phase_k1(ctx):
     for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
         g = torch.Generator().manual_seed(0)
         stems = randomize_bn(init_params(_Stems(dtype), g), g).cuda().eval()
-        for hw, n in ((FULL_HW, 1), ((65, 97), 1), ((66, 98), 1), ((257, 513), 2)):
+        for hw, n in ((FULL_HW, 1), ((65, 97), 1), ((66, 98), 1), ((257, 513), 2), ((135, 263), 2)):
             x = torch.randn(n, *hw, 3, generator=g).cuda().permute(0, 3, 1, 2)
             with torch.inference_mode():
                 outs = stems(x)
-                refs = stems_reference(stems, x)
+                refs = k1.stems_reference(stems, x)
                 torch.cuda.synchronize()
                 abs_err = max((o.float() - r.float()).abs().max().item() for o, r in zip(outs, refs))
                 rel = max(
@@ -289,16 +302,23 @@ def phase_k1(ctx):
                     raise AssertionError(f"K1 {dtype} {hw} n={n}: relative error {rel} > {tol}")
                 row = {"dtype": str(dtype).split(".")[-1], "hw": list(hw), "n": n,
                        "max_abs_err": abs_err, "max_rel_err": rel, "tol_rel": tol}
+                plan = k1.plan_stems(dtype, hw, n)
+                row.update(tile=list(plan.tile), smem=plan.smem, resident=plan.resident,
+                           blocks=k1.stem_blocks(plan.tile, n, *hw))
                 if hw == FULL_HW:
-                    args = []
-                    for i in range(3):
-                        args += [getattr(stems, f"stem{i}_conv").kernel,
-                                 *getattr(stems, f"stem{i}_bn").folded()]
-                    row["ms"] = cuda_ms(lambda: fused_stems(x, *args, out_dtype=dtype))
-                    row["plain_ms"] = cuda_ms(lambda: stems_reference(stems, x))
+                    weights = k1.stem_weights(stems, dtype)
+                    fn = lambda: k1.fused_stems(x, weights, dtype)  # noqa: E731
+                    row["ms"] = cuda_ms(fn)
+                    row["device_ms"] = device_ms(fn)
+                    row["plain_ms"] = cuda_ms(lambda: k1.stems_reference(stems, x))
+                    row["library_ms"] = None  # no single PyTorch call: three convs with BN
                     row["bound_ms"], row["bound_by"] = stems_bound(
                         n, *hw, 4, torch.finfo(dtype).bits // 8, dtype
                     )
+                    gflop = stems_products(n, *hw) / 1e9
+                    row["tflops"] = gflop / row["ms"]
+                    row["device_tflops"] = gflop / row["device_ms"] if row["device_ms"] else None
+                    row["nvidia_smi"] = nvidia_smi_line()
                     ctx.setdefault("k1", {})[row["dtype"]] = row
             rows.append(row)
     emit({"phase": "k1_stems", "checks": rows})
@@ -546,8 +566,10 @@ def phase_model(ctx):
 def _check_run(name, cell_exec, stats, counts, n_img, genotype):
     """The launches of one cli.evaluate run against what it must show."""
     k1, k2 = counts["fused_stems"], counts["entropy_argmax_triton"]
-    if k1 < n_img:
-        raise AssertionError(f"{name} {cell_exec}: K1 launched {k1} times for {n_img} images")
+    want_k1 = n_img if name == "static" else n_img + 1  # a dynamic run's warm-up runs the stems once
+    if k1 != want_k1:
+        raise AssertionError(f"{name} {cell_exec}: K1 launched {k1} times for {n_img} images "
+                             f"(batch 1), want {want_k1}")
     if name == "static":
         if k2 < 2 * n_img:
             raise AssertionError(f"static {cell_exec}: K2 launched {k2} times, want >= {2 * n_img}")

@@ -4,7 +4,7 @@
 
     python scripts/torch_probe_k3_variants.py [--variants whole,lb2,...]
 
-Builds copies of csrc/cell_ops.cu into build/k3_probe/ (git-ignored), each
+Builds copies of csrc/cell_ops.cu and its header into build/k3_probe/ (git-ignored), each
 changed by text substitution:
   whole    the kernel as it is
   lb2      two warp groups' instance bounded to two blocks an SM (at
@@ -26,7 +26,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import subprocess
 import sys
 from collections import defaultdict
 from concurrent.futures import ThreadPoolExecutor
@@ -61,18 +60,9 @@ RIGHT = ("whole", "lb2")
 
 
 def build(name: str) -> ctypes.CDLL:
-    src = (_build.CSRC_DIR / "cell_ops.cu").read_text()
-    for old, new in VARIANTS[name]:
-        if src.count(old) != 1:
-            raise RuntimeError(f"variant {name}: the kernel's text changed; update the substitution")
-        src = src.replace(old, new)
-    cu, so = OUT / f"cell_ops_{name}.cu", OUT / f"cell_ops_{name}.so"
-    cu.write_text(src)
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)], check=True,
-                          capture_output=True, text=True)
-    regs = [ln.strip() for ln in proc.stdout.splitlines() + proc.stderr.splitlines()
-            if "registers" in ln or "spill" in ln]
-    print(json.dumps({"variant": name, "ptxas": regs}), flush=True)
+    so, log = _build.build_variant("cell_ops", VARIANTS[name], OUT, name)
+    print(json.dumps({"variant": name, "ptxas": [ln.strip() for ln in log.splitlines()
+                                                 if "registers" in ln or "spill" in ln]}), flush=True)
     lib = ctypes.CDLL(str(so))
     lib.add_cell_block.argtypes = [ctypes.POINTER(co._Args), ctypes.c_void_p]
     lib.add_cell_block.restype = ctypes.c_int

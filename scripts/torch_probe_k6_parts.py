@@ -3,7 +3,7 @@
 
     python scripts/torch_probe_k6_parts.py
 
-Builds copies of csrc/cell_ops.cu into build/k6_probe/ (git-ignored), each
+Builds copies of csrc/cell_ops.cu and its header into build/k6_probe/ (git-ignored), each
 with one part of ``dense_stage_kernel`` removed by text substitution:
   nomma    no tensor-core products (fragments are still loaded)
   noldsm   no fragment loads inside the depth loop (products on stale registers)
@@ -22,7 +22,6 @@ from __future__ import annotations
 
 import ctypes
 import json
-import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -59,16 +58,8 @@ VARIANTS = {
 
 
 def build(name: str) -> ctypes.CDLL:
-    src = (_build.CSRC_DIR / "cell_ops.cu").read_text()
-    for old, new in VARIANTS[name]:
-        if src.count(old) != 1:
-            raise RuntimeError(f"variant {name}: the kernel's text changed; update the substitution")
-        src = src.replace(old, new)
-    cu, so = OUT / f"cell_ops_{name}.cu", OUT / f"cell_ops_{name}.so"
-    cu.write_text(src)
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)], check=True,
-                          capture_output=True, text=True)
-    print(json.dumps({"variant": name, "ptxas": [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
+    so, log = _build.build_variant("cell_ops", VARIANTS[name], OUT, name)
+    print(json.dumps({"variant": name, "ptxas": [ln.strip() for ln in log.splitlines()
                                                  if "registers" in ln or "spill" in ln]}), flush=True)
     lib = ctypes.CDLL(str(so))
     lib.add_cell_dense_stage.argtypes = [ctypes.POINTER(co._Args), ctypes.c_void_p]

@@ -46,6 +46,7 @@ from torch_port_helpers import (
     nchw,
     nhwc_np,
     port_module,
+    tf32,
 )
 
 C, H, W = 8, 13, 17
@@ -275,13 +276,6 @@ def test_k6_plans_cover_the_cuda_core_kernels_widths():
             assert old and all(pt_cell.plan_dense_stage(name, c, dtype) is not None for c in old), name
 
 
-def _tf32(x: torch.Tensor) -> torch.Tensor:
-    """Round fp32 to tf32 as cvt.rna does: to nearest, ties away from zero,
-    on the 13 low mantissa bits (added to the magnitude, then masked)."""
-    bits = x.view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
 def test_k6_3xtf32_split_holds_fp32_tolerance():
     """K6's fp32 scheme, emulated: ReLU'd inputs and weights split into
     tf32 hi + lo, the products lo*hi + hi*lo + hi*hi accumulated in fp32,
@@ -295,9 +289,9 @@ def test_k6_3xtf32_split_holds_fp32_tolerance():
     def conv(a, b):
         return torch.nn.functional.conv2d(a, b, dilation=2, padding=4)
 
-    xh, wh = _tf32(x), _tf32(w)
-    xl, wl = _tf32(x - xh), _tf32(w - wh)
-    assert torch.equal(_tf32(xh), xh) and (xh.view(torch.int32) & 0x1FFF).eq(0).all()
+    xh, wh = tf32(x), tf32(w)
+    xl, wl = tf32(x - xh), tf32(w - wh)
+    assert torch.equal(tf32(xh), xh) and (xh.view(torch.int32) & 0x1FFF).eq(0).all()
     three = conv(xl, wh) + conv(xh, wl) + conv(xh, wh)
     scale = ref.abs().max().item()
     err3 = (three.double() - ref).abs().max().item() / scale
@@ -391,8 +385,8 @@ def test_k3_3xtf32_split_holds_fp32_tolerance_on_a_pointwise_product():
     d = torch.from_numpy(rng.randn(99, 160).astype(np.float32))
     w = torch.from_numpy((rng.randn(160, 160) / 13).astype(np.float32))
     ref = d.double() @ w.double().t()
-    dh, wh = _tf32(d), _tf32(w)
-    dl, wl = _tf32(d - dh), _tf32(w - wh)
+    dh, wh = tf32(d), tf32(w)
+    dl, wl = tf32(d - dh), tf32(w - wh)
     three = dl @ wh.t() + dh @ wl.t() + dh @ wh.t()
     scale = ref.abs().max().item()
     err3 = (three.double() - ref).abs().max().item() / scale

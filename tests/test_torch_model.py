@@ -166,16 +166,22 @@ def test_add_per_exit_logits_bf16(tiny, tiny_ref):
         assert_bf16_within_jax(o.float().numpy(), np.asarray(r16, np.float32), r32)
 
 
-def test_three_exits_fp32():
+@pytest.fixture(scope="module")
+def three_exits():
     """C=3: a level-0 exit (DoubleFactorizedReduce adapter), a level-3 exit
     (upsample + 1x1 adapter) and the final one; the path also takes every
-    cell downup_sample (-1, 0, +1)."""
+    cell downup_sample (-1, 0, +1). The JAX ADD, its seeded variables, the
+    port model and an input."""
     path, c_index = [0, 1, 2, 3, 2, 2], [0, 3]
     jm = _jx_add(path=path, c_index=c_index)
-    x = _x((1, *HW, 3), seed=6)
     v = flax_variables(jm, jnp.zeros((1, *HW, 3)), train=False, seed=7)
+    return jm, v, _pt_add(v, path=path, c_index=c_index), _x((1, *HW, 3), seed=6)
+
+
+def test_three_exits_fp32(three_exits):
+    jm, v, pm, x = three_exits
     refs = _jx_forward(jm, v, x)
-    outs = _pt_add(v, path=path, c_index=c_index)(torch.from_numpy(x))
+    outs = pm(torch.from_numpy(x))
     assert len(outs) == len(refs) == 3
     for o, r in zip(outs, refs):
         assert_close_fp32_model(o.numpy(), r)
@@ -184,16 +190,19 @@ def test_three_exits_fp32():
 @pytest.mark.parametrize("ctor", ["BaselineModel", "AutoDeepLab"])
 def test_other_constructors_take_jax_variables(ctor):
     """The non-dense constructors name every parameter as the JAX package
-    does (the bridge raises otherwise) and run to finite logits."""
+    does (the bridge raises otherwise) and give the JAX module's logits at
+    every exit."""
     path = [0, 1, 2, 3, 2, 1]
     args = (path, [2]) if ctor == "BaselineModel" else (path,)
     jm = getattr(jx_models, ctor)(*args, AUTODEEPLAB_GENOTYPE, NCLS, F=F, B=5)
     v = flax_variables(jm, jnp.zeros((1, *HW, 3)), train=False, seed=9)
     pm = port_module(getattr(pt_models, ctor)(*args, AUTODEEPLAB_GENOTYPE, NCLS, F=F, B=5), v)
-    outs = pm(torch.from_numpy(_x((1, *HW, 3))))
-    assert len(outs) == len(jm.exit_layers) == len(pm.exit_layers)
-    for o in outs:
+    x = _x((1, *HW, 3))
+    outs, refs = pm(torch.from_numpy(x)), _jx_forward(jm, v, x)
+    assert len(outs) == len(refs) == len(jm.exit_layers) == len(pm.exit_layers)
+    for o, r in zip(outs, refs):
         assert o.shape == (1, *HW, NCLS) and torch.isfinite(o).all()
+        assert_close_fp32_model(o.numpy(), r)
 
 
 def test_get_feature(tiny, tiny_ref):
@@ -244,6 +253,37 @@ def test_engine_matches_jax(tiny, engines, confidence, thr_exit, thr_stay, exits
     assert_close_fp32_model(logits.numpy(), l_r)
 
 
+# the 3-exit model's input: entropy 0.258 at exit 0, 0.079 at exit 1
+@pytest.mark.parametrize("thr,want_exit", [(2.0, 0), (0.2, 1), (-1.0, 2)])
+def test_engine_matches_jax_at_three_exits(three_exits, thr, want_exit):
+    jm, v, pm, x = three_exits
+    jeng = _three_exit_engines(three_exits)
+    # reuse the compiled entropy decide programs (the threshold enters them
+    # only through the host-side comparison)
+    for key, prog in list(jeng._programs.items()):
+        if key[0] == "decide":
+            jeng._programs.setdefault(key[:4] + (thr,), prog)
+    l_r, k_r, _, c_r = jeng.infer(jx(x), threshold=thr, confidence="entropy")
+    logits, k, _, c = PtEngine(pm, num_classes=NCLS, device="cpu").infer(
+        torch.from_numpy(x), threshold=thr, confidence="entropy"
+    )
+    assert k == k_r == want_exit
+    assert abs(c - c_r) <= 1e-4
+    assert_close_fp32_model(logits.numpy(), l_r)
+
+
+_JX_ENGINES = {}
+
+
+def _three_exit_engines(three_exits):
+    """One JAX engine for the 3-exit model, so that its compiled programs
+    serve every case."""
+    if "three" not in _JX_ENGINES:
+        jm, v, _, _ = three_exits
+        _JX_ENGINES["three"] = JxEngine(jm, v, num_classes=NCLS)
+    return _JX_ENGINES["three"]
+
+
 # -------------------------------------------------------------- evaluator
 
 
@@ -280,6 +320,26 @@ def test_synthetic_data_copy_matches_jax(index):
     out = PtSynthetic(4, (17, 23), NCLS, seed=1)[index]
     np.testing.assert_array_equal(out["image"], ref["image"])
     np.testing.assert_array_equal(out["label"], ref["label"])
+
+
+def test_dynamic_inference_confidence_matches_jax_fused_at_three_exits(three_exits):
+    """The JAX evaluator's default (fused) program reports each image's
+    first decision's confidence; the port's evaluator reports the same.
+    Entropies of the loader's images at exits 0 and 1: (0.237, 0.077) and
+    (0.219, 0.088); at threshold 0.228 the first exits at exit 1, where
+    the first and the last decision differ, the second at exit 0."""
+    jm, v, pm, _ = three_exits
+
+    def loader(synthetic, data_loader):
+        return data_loader(synthetic(2, HW, NCLS), 2, shuffle=False, drop_last=False, num_workers=1)
+
+    kw = dict(threshold=0.228, confidence="entropy")
+    ref = JxEvaluation(jm, v, NCLS).dynamic_inference(loader(JxSynthetic, JxLoader), **kw)
+    out = PtEvaluation(pm, NCLS, device="cpu").dynamic_inference(loader(PtSynthetic, PtLoader), **kw)
+    assert out["exit_histogram"] == ref["exit_histogram"] == [1, 1, 0]
+    assert abs(out["avg_confidence"] - ref["avg_confidence"]) <= 1e-4
+    assert out["miou"] == pytest.approx(ref["miou"], abs=1e-6)
+    assert out["n_images"] == ref["n_images"] == 2
 
 
 def test_dynamic_inference_fused_not_ported(tiny):

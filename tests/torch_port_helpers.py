@@ -86,3 +86,10 @@ def assert_bf16_within_jax(port_out, jax_bf16_out, jax_fp32_out):
     jax_err = rel_err(jax_bf16_out, jax_fp32_out)
     port_err = rel_err(port_out, jax_fp32_out)
     assert port_err <= 2.0 * jax_err + 1e-3, (port_err, jax_err)
+
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to tf32 as cvt.rna does: to nearest, ties away from
+    zero, on the 13 low mantissa bits (added to the magnitude, then masked)."""
+    bits = x.view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
