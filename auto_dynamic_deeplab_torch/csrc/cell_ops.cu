@@ -27,20 +27,18 @@
 // Layout. A state is NCHW logical, channels_last memory: pixel (n, h, w)
 // starts at n * img_stride + (h * W + w) * ps and holds C contiguous
 // channels. ps > C for a channel slice of the cell's concat buffer, which
-// K3 writes into directly. Weights: dwk (C, k*k) fp32; K5's pw (C, O8) in
-// the state dtype, output channels innermost and zero-padded to O8 = C
-// rounded up to 8 (16-byte loads); biases (O8,) fp32. The tensor-core
-// kernels read the pointwise and dense weights packed as (taps, O8, Cpad):
-// input channels innermost, zero-padded to Cpad (one 32-byte mma depth
-// step); a pointwise weight is one tap.
+// K3 writes into directly. Weights: dwk (C, k*k) fp32; biases (O8,) fp32,
+// O8 = C rounded up to 8. The kernels read the pointwise and dense weights
+// packed as (taps, O8, Cpad) in the state dtype: input channels innermost,
+// zero-padded to Cpad (one 32-byte mma depth step); a pointwise weight is
+// one tap.
 //
 // Bound on an H100 SXM. A flagship cell's DAG is about 8.2 GFLOP at every
 // level (dil5 = 50 C^2 FLOP a pixel, sep = 4 C (k^2 + C)), 98.7 GFLOP for
 // the 12 cells at 1025x2049, against 0.66 GB of state traffic in fp32
 // (0.33 GB in bf16). The products are 95-99% of it and run on the tensor
 // cores (989 TFLOP/s bf16; fp32 by 3xTF32 at 495 / 3); the depthwise taps
-// run on the CUDA cores in fp32 (67 TFLOP/s). K5 still does every product
-// on the CUDA cores.
+// run on the CUDA cores in fp32 (67 TFLOP/s).
 //
 // The tap-GEMM routine (tap_gemm, tap_gemm.cuh, shared with K1). An implicit GEMM per
 // block: M = the pixels of a th x tw tile (one warp per 16, times 1-2 warp
@@ -78,12 +76,18 @@
 // The epilogue sums the edges' biases and skip sources, rounds once and
 // writes the block's channel slice of the concat.
 //
-// K5 (sep_stage_kernel, CUDA cores): a block of THREADS threads owns a
-// TH x TW tile and all C channels; the source window with its halo is
-// loaded once (ReLU on load by flag, 0 outside the image) at an odd
-// channel pitch; the depthwise runs one (pixel, channel) per thread; the
-// pointwise product is tiles of PX pixels x 8 output channels per thread
-// in fp32 registers, with the weights read as 16-byte __ldg loads.
+// K5 (sep_stage_kernel): a block owns a th x tw tile of one image and an
+// ns-channel slice of the outputs, as K3 and K6 do, and takes the input
+// channels in chunks of 128 bytes (32 fp32, 64 bf16: four mma depth
+// steps), so that its shared memory does not grow with C (57.6 KB for
+// sep5 on 8x8 in either dtype). Chunk j + 1's raw window (tile plus a
+// k//2 halo) and its ns weight rows are copied by cp.async into the other
+// of two stages while chunk j computes: its depthwise on the CUDA cores
+// (fp32 taps in registers, ReLU at the read by flag, rounded, 0 in the pad
+// channels) into an A chunk at the mma pitch, then that chunk's mma k-steps
+// into the block's fp32 accumulators. Every slice recomputes the depthwise
+// for all C channels (k^2 taps against C products a pixel). The epilogue
+// adds the fp32 bias, ReLUs by flag and rounds once.
 // Every kernel launches on the caller's stream, allocates nothing, and
 // checks the host's shared-memory grant against its own carve-up.
 
@@ -101,9 +105,8 @@ struct Edge {
   int ps;                // elements between pixels
   int kind, k, dil;
   const float* dwk1;     // sep: stage-1 dw taps (C, k*k); K5: the stage's
-  const void* w1;        // K5: the stage's pw (C, O8)
   const float* b1;       // (O8,): sep stage 1, dil, K5's stage
-  const void* pk1;       // packed (taps, O8, Cpad): sep stage-1 pw (1 tap), dil (k*k taps)
+  const void* pk1;       // packed (taps, O8, Cpad): sep stage-1 (K5: the stage's) pw (1 tap), dil (k*k taps)
   const float* dwk2;     // sep: stage 2
   const float* b2;
   const void* pk2;       // sep: stage-2 pw, packed (1, O8, Cpad)
@@ -115,54 +118,31 @@ struct Args {
   void* out;
   long long out_img_stride;
   int out_ps, N, H, W, C, O8, th, tw, smem;
-  int ns, ng;  // K3/K4/K6: output channels a block computes (its N-slice), warp groups over them
+  int ns, ng;  // output channels a block computes (its N-slice), warp groups over them
 };
 
 namespace {
 
-// K5: 5 warps; the flagship's C = 40 * 2^level gives 5 * 2^level groups of
-// 8 output channels, so a tile's GEMM items come in multiples of 160.
-constexpr int THREADS = 160;
-constexpr int PX = 4;   // pixels of one GEMM item, along a tile row
-constexpr int OG = 8;   // output channels of one GEMM item
+constexpr int OG = 8;  // output channels of one n8 mma fragment
 constexpr int SMEM_MAX = 232448;
+// K5: bytes of input channels in one chunk (32 fp32, 64 bf16: four mma
+// depth steps); its A and B chunk rows are 16 bytes longer (ldmatrix)
+constexpr int STAGE_CHUNK = 128;
+constexpr int STAGE_PITCH = STAGE_CHUNK + 16;
 
 enum { SKIP = 0, SEP = 1, DIL = 2 };
-
-__device__ __forceinline__ void load8(const float* w, float (&v)[OG]) {
-  const float4 a = __ldg(reinterpret_cast<const float4*>(w));
-  const float4 b = __ldg(reinterpret_cast<const float4*>(w) + 1);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* w, float (&v)[OG]) {
-  const uint4 u = __ldg(reinterpret_cast<const uint4*>(w));
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
 
 // ------------------------------------------------ shared-memory carve-up
 // (kernels/cell_ops.py's plan functions compute the same bytes)
 
-__host__ __device__ inline int pitch(int C) { return C | 1; }
-__host__ __device__ inline size_t r16(size_t b) { return (b + 15) / 16 * 16; }
-
-__host__ __device__ inline size_t window_bytes(int h, int w, int C, int eb) {
-  return r16((size_t)h * w * pitch(C) * eb);
-}
-
 inline int elem_bytes(const Args& a) { return a.is_bf16 ? 2 : 4; }
 
+// K5: two stages of a chunk's raw window (tile plus a k//2 halo, rows of
+// STAGE_CHUNK bytes) and of its ns weight rows, and the chunk's A rows
 size_t stage_smem(const Args& a) {
   const int r = a.e[0].k / 2;
-  return window_bytes(a.th + 2 * r, a.tw + 2 * r, a.C, elem_bytes(a)) +
-         window_bytes(a.th, a.tw, a.C, elem_bytes(a));
+  return 2 * ((size_t)(a.th + 2 * r) * (a.tw + 2 * r) * STAGE_CHUNK + (size_t)a.ns * STAGE_PITCH) +
+         (size_t)a.th * a.tw * STAGE_PITCH;
 }
 
 // Rows (pixels) of one edge's working space on a th x tw tile: a sep
@@ -210,146 +190,35 @@ size_t block_smem(const Args& a) {
          (size_t)threads * stash_floats(a) * sizeof(float);
 }
 
-// ------------------------------------------------------ K5's pieces
-
-// win[(i * ww + j) * cp + c] = src pixel (r0 + i, c0 + j), channel c, for
-// i < wh, j < ww; 0 outside the image, ReLU'd when `relu`.
-template <typename T>
-__device__ void load_window(const Edge& e, int n, int H, int W, int C, int r0, int c0, int wh,
-                            int ww, bool relu, T* win) {
-  const T* src = static_cast<const T*>(e.src) + n * e.img_stride;
-  const int cp = pitch(C);
-  const int total = wh * ww * C;
-  for (int i = threadIdx.x; i < total; i += blockDim.x) {
-    const int c = i % C, p = i / C;
-    const int gr = r0 + p / ww, gc = c0 + p % ww;
-    float v = 0.f;
-    if (gr >= 0 && gr < H && gc >= 0 && gc < W) {
-      v = Cvt<T>::to(src[((long long)gr * W + gc) * e.ps + c]);
-      if (relu) v = fmaxf(v, 0.f);
-    }
-    win[p * cp + c] = Cvt<T>::from(v);
-  }
-}
-
-// dst (dh x dw pixels) = round(depthwise k x k of src (row pitch sw
-// pixels)), dst pixel (i, j) reading src pixels (i..i+k-1, j..j+k-1).
-template <typename T>
-__device__ void depthwise(const T* src, int sw, int C, int k, const float* __restrict__ dwk, T* dst,
-                          int dh, int dw) {
-  const int cp = pitch(C), kk = k * k;
-  const int total = dh * dw * C;
-  for (int i = threadIdx.x; i < total; i += blockDim.x) {
-    const int c = i % C, p = i / C;
-    const T* s = src + ((p / dw) * sw + p % dw) * cp + c;
-    const float* wk = dwk + c * kk;
-    float acc = 0.f;
-    for (int a = 0; a < k; ++a)
-      for (int b = 0; b < k; ++b)
-        acc = fmaf(Cvt<T>::to(s[(a * sw + b) * cp]), __ldg(wk + a * k + b), acc);
-    dst[p * cp + c] = Cvt<T>::from(acc);
-  }
-}
-
-// acc[px][o] = sum_c src[p0 + px][c] * w[c][og*8 + o] over the np pixels
-// of a linear region (pixels past np read the last one; callers drop them).
-template <typename T>
-__device__ __forceinline__ void pw_item(const T* src, int C, int p0, int np, const T* __restrict__ w,
-                                        int O8, int og, float (&acc)[PX][OG]) {
-  const int cp = pitch(C);
-  const T* s[PX];
-#pragma unroll
-  for (int px = 0; px < PX; ++px) {
-    s[px] = src + min(p0 + px, np - 1) * cp;
-#pragma unroll
-    for (int o = 0; o < OG; ++o) acc[px][o] = 0.f;
-  }
-  const T* wp = w + og * OG;
-  for (int c = 0; c < C; ++c) {
-    float wv[OG];
-    load8(wp + (size_t)c * O8, wv);
-#pragma unroll
-    for (int px = 0; px < PX; ++px) {
-      const float v = Cvt<T>::to(s[px][c]);
-#pragma unroll
-      for (int o = 0; o < OG; ++o) acc[px][o] = fmaf(v, wv[o], acc[px][o]);
-    }
-  }
-}
-
-// Stores y (rounded) at tile pixel p, channel c, when the pixel is inside.
-template <typename T>
-struct Store {
-  T* out;
-  int ps, H, W, r0, c0, tw;
-  bool relu;
-  __device__ void operator()(int p, int c, float y) const {
-    const int gr = r0 + p / tw, gc = c0 + p % tw;
-    if (gr < H && gc < W)
-      out[((long long)gr * W + gc) * ps + c] = Cvt<T>::from(relu ? fmaxf(y, 0.f) : y);
-  }
-};
-
-// K5: one dw k x k -> round -> pw -> +b stage, ReLU on input / output by flag.
-template <typename T>
-__global__ void __launch_bounds__(THREADS) sep_stage_kernel(const Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Edge& e = a.e[0];
-  const int n = blockIdx.z, r0 = blockIdx.y * a.th, c0 = blockIdx.x * a.tw;
-  const int C = a.C, r = e.k / 2, th = a.th, tw = a.tw;
-  const int wh = th + 2 * r, ww = tw + 2 * r;
-  T* X = reinterpret_cast<T*>(smem);
-  T* D = reinterpret_cast<T*>(smem + window_bytes(wh, ww, C, sizeof(T)));
-  load_window<T>(e, n, a.H, a.W, C, r0 - r, c0 - r, wh, ww, a.in_relu != 0, X);
-  __syncthreads();
-  depthwise<T>(X, ww, C, e.k, e.dwk1, D, th, tw);
-  __syncthreads();
-  const Store<T> store{static_cast<T*>(a.out) + n * a.out_img_stride, a.out_ps, a.H, a.W, r0, c0,
-                       a.tw, a.out_relu != 0};
-  const int G = a.O8 / OG, np = th * tw, ng = np / PX;
-  for (int item = threadIdx.x; item < ng * G; item += blockDim.x) {
-    const int og = item % G, p0 = (item / G) * PX;
-    float acc[PX][OG];
-    pw_item<T>(D, C, p0, np, static_cast<const T*>(e.w1), a.O8, og, acc);
-#pragma unroll
-    for (int px = 0; px < PX; ++px)
-#pragma unroll
-      for (int o = 0; o < OG; ++o) {
-        const int co = og * OG + o;
-        if (co < C) store(p0 + px, co, acc[px][o] + e.b1[co]);
-      }
-  }
-}
-
-// ------------------------------- tensor-core pieces (K3, K4 and K6)
+// ------------------------------------------------------ shared pieces
 
 constexpr int MMA_MWARPS = 4;  // warps along M, one per 16 tile pixels: at most 4
 constexpr int MMA_GROUPS = 2;  // warp groups that split the N-slice: at most 2
 constexpr int NF_MAX = 5;      // n8 fragments a warp holds, so ns <= 40
 
-// The window of source pixels (r0 + i, c0 + j), i < wh, j < ww, raw (no
-// ReLU) in the mma layout: pixel i * ww + j at that row times the pitch,
-// 0 outside the image and in the pad channels. 16-byte cp.async where the
-// source's address and strides allow (the caller commits and waits), else
-// element by element.
+// Channels [ch0, ch0 + cw) of the window of source pixels (r0 + i, c0 +
+// j), i < wh, j < ww, raw (no ReLU): pixel i * ww + j at that row times pb
+// bytes, 0 outside the image and in channels >= C. 16-byte cp.async where
+// the source's address and strides allow (the caller commits and waits),
+// else element by element. ch0 and cw are whole 32-byte depth steps.
 template <typename T>
-__device__ __forceinline__ void load_raw_window(const Edge& e, int n, int H, int W, int C, int r0,
-                                                int c0, int wh, int ww, unsigned char* win) {
+__device__ __forceinline__ void load_raw_channels(const Edge& e, int n, int H, int W, int C, int r0,
+                                                  int c0, int wh, int ww, int ch0, int cw,
+                                                  unsigned char* win, int pb) {
   constexpr int EB = sizeof(T);
-  const int cpad = dense_cpad(C, EB), pb = dense_pitch(C, EB) * EB;
   const unsigned char* src =
       static_cast<const unsigned char*>(e.src) + (size_t)n * e.img_stride * EB;
   const int cbytes = C * EB;
   const bool vec = cbytes % 16 == 0 && (e.ps * EB) % 16 == 0 && (e.img_stride * EB) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(e.src) % 16 == 0;
   if (vec) {
-    const int cc = cbytes / 16;
-    for_2d(wh * ww, cpad * EB / 16, [&](int p, int j) {
+    const int cc = (C - ch0) * EB / 16;  // the segments that hold channels < C
+    for_2d(wh * ww, cw * EB / 16, [&](int p, int j) {
       const int wr = p / ww, gr = r0 + wr, gc = c0 + p - wr * ww;
       unsigned char* dst = win + (size_t)p * pb + j * 16;
       if (j < cc) {
         const bool inside = gr >= 0 && gr < H && gc >= 0 && gc < W;
-        const unsigned char* s = inside ? src + (((size_t)gr * W + gc) * e.ps) * EB + j * 16 : src;
+        const unsigned char* s = inside ? src + (((size_t)gr * W + gc) * e.ps + ch0) * EB + j * 16 : src;
         cp_async16(dst, s, inside);
       } else {
         *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
@@ -357,26 +226,34 @@ __device__ __forceinline__ void load_raw_window(const Edge& e, int n, int H, int
     });
   } else {
     const T* s = reinterpret_cast<const T*>(src);
-    for (int i = threadIdx.x; i < wh * ww * cpad; i += blockDim.x) {
-      const int c = i % cpad, p = i / cpad;
+    for (int i = threadIdx.x; i < wh * ww * cw; i += blockDim.x) {
+      const int c = i % cw, p = i / cw;
       const int gr = r0 + p / ww, gc = c0 + p % ww;
-      const bool inside = c < C && gr >= 0 && gr < H && gc >= 0 && gc < W;
+      const bool inside = ch0 + c < C && gr >= 0 && gr < H && gc >= 0 && gc < W;
       reinterpret_cast<T*>(win + (size_t)p * pb)[c] =
-          inside ? s[((size_t)gr * W + gc) * e.ps + c] : Cvt<T>::from(0.f);
+          inside ? s[((size_t)gr * W + gc) * e.ps + ch0 + c] : Cvt<T>::from(0.f);
     }
   }
 }
 
-// dst (dh x dw pixels, mma layout) = round(depthwise K x K of src (mma
-// layout, rows of sw pixels)), dst pixel (i, j) reading src pixels
-// (i..i+K-1, j..j+K-1), ReLU'd at the read when RELU; 0 in the pad
-// channels. A thread keeps one channel pair's fp32 taps in registers and
-// walks the pixels two at a time along a row (dw is even), loading K + 1
-// input columns a tap row instead of 2K.
+// The whole window (every channel) in the mma layout
+template <typename T>
+__device__ __forceinline__ void load_raw_window(const Edge& e, int n, int H, int W, int C, int r0,
+                                                int c0, int wh, int ww, unsigned char* win) {
+  constexpr int EB = sizeof(T);
+  load_raw_channels<T>(e, n, H, W, C, r0, c0, wh, ww, 0, dense_cpad(C, EB), win, dense_pitch(C, EB) * EB);
+}
+
+// dst (dh x dw pixels, rows of dpb bytes) = round(depthwise K x K of src
+// (rows of spb bytes, sw pixels a row)), dst pixel (i, j) reading src
+// pixels (i..i+K-1, j..j+K-1), ReLU'd at the read when RELU, over the
+// cpad channels of a row; 0 in channels >= C. A thread keeps one channel
+// pair's fp32 taps in registers and walks the pixels two at a time along a
+// row (dw is even), loading K + 1 input columns a tap row instead of 2K.
 template <typename T, bool RELU, int K>
-__device__ __forceinline__ void depthwise_mma(const unsigned char* src, int sw, int C, int cpad,
-                                              int pb, const float* __restrict__ dwk,
-                                              unsigned char* dst, int dh, int dw) {
+__device__ __forceinline__ void depthwise_mma(const unsigned char* src, int sw, int spb, int C,
+                                              int cpad, const float* __restrict__ dwk,
+                                              unsigned char* dst, int dpb, int dh, int dw) {
   const int pairs = cpad / 2, per = blockDim.x / pairs;
   const int c = 2 * (threadIdx.x % pairs);
   int p = threadIdx.x / pairs;
@@ -390,14 +267,14 @@ __device__ __forceinline__ void depthwise_mma(const unsigned char* src, int sw, 
   const int hw2 = dw / 2;  // two adjacent pixels a step: the regions' widths are even
   for (; p < dh * hw2; p += per) {
     const int i = p / hw2, j = 2 * (p - i * hw2);
-    const unsigned char* s = src + ((size_t)i * sw + j) * pb + c * sizeof(T);
+    const unsigned char* s = src + ((size_t)i * sw + j) * spb + c * sizeof(T);
     float a0 = 0.f, a1 = 0.f, b0 = 0.f, b1 = 0.f;
 #pragma unroll
     for (int ta = 0; ta < K; ++ta) {
       float2 v[K + 1];
 #pragma unroll
       for (int tb = 0; tb <= K; ++tb) {
-        v[tb] = load2(reinterpret_cast<const T*>(s + (size_t)(ta * sw + tb) * pb));
+        v[tb] = load2(reinterpret_cast<const T*>(s + (size_t)(ta * sw + tb) * spb));
         if (RELU) {
           v[tb].x = fmaxf(v[tb].x, 0.f);
           v[tb].y = fmaxf(v[tb].y, 0.f);
@@ -411,21 +288,122 @@ __device__ __forceinline__ void depthwise_mma(const unsigned char* src, int sw, 
         b1 = fmaf(v[tb + 1].y, w1[ta * K + tb], b1);
       }
     }
-    T* o = reinterpret_cast<T*>(dst + ((size_t)i * dw + j) * pb) + c;
+    T* o = reinterpret_cast<T*>(dst + ((size_t)i * dw + j) * dpb) + c;
     store2(o, c < C ? a0 : 0.f, c + 1 < C ? a1 : 0.f);
-    store2(reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(o) + pb), c < C ? b0 : 0.f,
+    store2(reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(o) + dpb), c < C ? b0 : 0.f,
            c + 1 < C ? b1 : 0.f);
   }
 }
 
 template <typename T, bool RELU>
-__device__ __forceinline__ void depthwise_k(int k, const unsigned char* src, int sw, int C, int cpad,
-                                            int pb, const float* dwk, unsigned char* dst, int dh,
-                                            int dw) {
+__device__ __forceinline__ void depthwise_k(int k, const unsigned char* src, int sw, int spb, int C,
+                                            int cpad, const float* dwk, unsigned char* dst, int dpb,
+                                            int dh, int dw) {
   if (k == 3)
-    depthwise_mma<T, RELU, 3>(src, sw, C, cpad, pb, dwk, dst, dh, dw);
+    depthwise_mma<T, RELU, 3>(src, sw, spb, C, cpad, dwk, dst, dpb, dh, dw);
   else
-    depthwise_mma<T, RELU, 5>(src, sw, C, cpad, pb, dwk, dst, dh, dw);
+    depthwise_mma<T, RELU, 5>(src, sw, spb, C, cpad, dwk, dst, dpb, dh, dw);
+}
+
+// The epilogue of K5 and K6: y = the products (acc_lo + acc) + the fp32
+// bias, ReLU'd when `relu`, rounded once, at the lane's rows g, g + 8 and
+// channel pair 2t, 2t + 1 of each of its fragments of the block's slice
+// (output channels from n0); channel pairs stored together where the
+// layout allows; pixels outside the image and pad channels skipped.
+template <typename T>
+__device__ __forceinline__ void store_slice(const Args& a, const WarpTile& w, int n, int n0, int r0,
+                                            int c0, const float* bias, bool relu,
+                                            const float (&acc)[NF_MAX][4], const float (&acc_lo)[NF_MAX][4]) {
+  constexpr int EB = sizeof(T);
+  const int C = a.C;
+  T* out = static_cast<T*>(a.out) + (size_t)n * a.out_img_stride;
+  const bool pairs = (a.out_ps % 2 == 0) && (a.out_img_stride % 2 == 0) &&
+                     reinterpret_cast<uintptr_t>(a.out) % (2 * EB) == 0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int pp = w.mw * 16 + w.g() + 8 * h;
+    const int gr = r0 + pp / a.tw, gc = c0 + pp % a.tw;
+    if (pp >= a.th * a.tw || gr >= a.H || gc >= a.W) continue;
+    T* o = out + ((size_t)gr * a.W + gc) * a.out_ps;
+#pragma unroll
+    for (int j = 0; j < NF_MAX; ++j) {
+      if (j >= w.nf) break;
+      const int co = n0 + (w.j0 + j) * 8 + 2 * w.t();
+      float y0 = acc_lo[j][2 * h] + acc[j][2 * h] + bias[co];
+      float y1 = acc_lo[j][2 * h + 1] + acc[j][2 * h + 1] + bias[co + 1];
+      if (relu) {
+        y0 = fmaxf(y0, 0.f);
+        y1 = fmaxf(y1, 0.f);
+      }
+      if (pairs && co + 1 < C) {
+        store2(o + co, y0, y1);
+      } else {
+        if (co < C) o[co] = Cvt<T>::from(y0);
+        if (co + 1 < C) o[co + 1] = Cvt<T>::from(y1);
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------- K5
+
+// K5: one [ReLU] -> dw k x k -> round -> pw -> +b -> [ReLU] stage. A block
+// owns a th x tw tile of one image and an N-slice of ns output channels
+// (blockIdx.z = image * slices + slice) and walks the input channels in
+// chunks of STAGE_CHUNK bytes: chunk j + 1's raw window and weight rows
+// are copied into the other stage while chunk j's depthwise and products
+// run; two barriers a chunk.
+template <typename T>
+__global__ void __launch_bounds__(MMA_MWARPS * MMA_GROUPS * 32) sep_stage_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int EB = sizeof(T), CH = STAGE_CHUNK / EB;
+  const Edge& e = a.e[0];
+  const int slices = a.O8 / a.ns;
+  const int n = blockIdx.z / slices, n0 = (blockIdx.z % slices) * a.ns;
+  const int r0 = blockIdx.y * a.th, c0 = blockIdx.x * a.tw;
+  const int C = a.C, k = e.k, r = k / 2, wh = a.th + 2 * r, ww = a.tw + 2 * r, M = a.th * a.tw;
+  const int cpad = dense_cpad(C, EB), chunks = (cpad + CH - 1) / CH;
+  const size_t raw_bytes = (size_t)wh * ww * STAGE_CHUNK;
+  unsigned char* raw = smem;                                 // two stages of a chunk's raw window
+  unsigned char* A = raw + 2 * raw_bytes;                    // the chunk's depthwise output, M rows
+  unsigned char* B = A + (size_t)M * STAGE_PITCH;            // two stages of the chunk's ns weight rows
+  const unsigned char* pk = static_cast<const unsigned char*>(e.pk1) + (size_t)n0 * cpad * EB;
+  auto load_chunk = [&](int j) {
+    const int ch0 = j * CH, cw = min(CH, cpad - ch0), st = j & 1;
+    load_raw_channels<T>(e, n, a.H, a.W, C, r0 - r, c0 - r, wh, ww, ch0, cw, raw + st * raw_bytes,
+                         STAGE_CHUNK);
+    unsigned char* b = B + (size_t)st * a.ns * STAGE_PITCH;
+    for_2d(a.ns, cw * EB / 16, [&](int row, int q) {
+      cp_async16(b + row * STAGE_PITCH + q * 16, pk + ((size_t)row * cpad + ch0) * EB + q * 16, true);
+    });
+  };
+  const WarpTile w(M, a.ns, a.ng, STAGE_PITCH);
+  const unsigned char* a_lane = w.a_row(A, a.tw, a.tw, M);
+  const int b_off = w.b_off();
+
+  float acc[NF_MAX][4], acc_lo[NF_MAX][4];
+#pragma unroll
+  for (int j = 0; j < NF_MAX; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = acc_lo[j][i] = 0.f;
+  load_chunk(0);
+  cp_async_commit();
+  for (int j = 0; j < chunks; ++j) {
+    cp_async_wait<0>();
+    __syncthreads();  // chunk j has landed; chunk j - 1's products are done with A and the other stage
+    if (j + 1 < chunks) load_chunk(j + 1);
+    cp_async_commit();
+    const int ch0 = j * CH, cw = min(CH, cpad - ch0);
+    const unsigned char* src = raw + (j & 1) * raw_bytes;
+    if (a.in_relu)
+      depthwise_k<T, true>(k, src, ww, STAGE_CHUNK, C - ch0, cw, e.dwk1 + ch0 * k * k, A, STAGE_PITCH, a.th, a.tw);
+    else
+      depthwise_k<T, false>(k, src, ww, STAGE_CHUNK, C - ch0, cw, e.dwk1 + ch0 * k * k, A, STAGE_PITCH, a.th, a.tw);
+    __syncthreads();  // the A chunk is written
+    warp_product<T, false>(a_lane, B + (size_t)(j & 1) * a.ns * STAGE_PITCH + b_off, STAGE_PITCH, w.nf,
+                           cw * EB / 32, acc, acc_lo);
+  }
+  store_slice<T>(a, w, n, n0, r0, c0, e.b1, a.out_relu != 0, acc, acc_lo);
 }
 
 // ------------------------------------------------------------- K6
@@ -433,7 +411,7 @@ __device__ __forceinline__ void depthwise_k(int k, const unsigned char* src, int
 // K6: one DilConv edge, the tap-GEMM routine on its window. A block owns
 // a th x tw tile of one image and an N-slice of ns output channels
 // (blockIdx.z = image * slices + slice). Epilogue: + fp32 bias, one
-// rounding, channel pairs stored together where the layout allows.
+// rounding (store_slice).
 template <typename T>
 __global__ void __launch_bounds__(MMA_MWARPS * MMA_GROUPS * 32) dense_stage_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -459,30 +437,7 @@ __global__ void __launch_bounds__(MMA_MWARPS * MMA_GROUPS * 32) dense_stage_kern
                     static_cast<const unsigned char*>(e.pk1) + (size_t)n0 * cpad * EB,
                     (size_t)a.O8 * cpad * EB, a.ns, cpad, wst, w, acc, acc_lo);
 
-  // epilogue: lane holds rows g, g + 8 and channel pair 2t, 2t + 1 of each fragment
-  T* out = static_cast<T*>(a.out) + (size_t)n * a.out_img_stride;
-  const bool pairs = (a.out_ps % 2 == 0) && (a.out_img_stride % 2 == 0) &&
-                     reinterpret_cast<uintptr_t>(a.out) % (2 * EB) == 0;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int pp = w.mw * 16 + w.g() + 8 * h;
-    const int gr = r0 + pp / a.tw, gc = c0 + pp % a.tw;
-    if (pp >= a.th * a.tw || gr >= a.H || gc >= a.W) continue;
-    T* o = out + ((size_t)gr * a.W + gc) * a.out_ps;
-#pragma unroll
-    for (int j = 0; j < NF_MAX; ++j) {
-      if (j >= w.nf) break;
-      const int co = n0 + (w.j0 + j) * 8 + 2 * w.t();
-      const float y0 = acc_lo[j][2 * h] + acc[j][2 * h] + e.b1[co];
-      const float y1 = acc_lo[j][2 * h + 1] + acc[j][2 * h + 1] + e.b1[co + 1];
-      if (pairs && co + 1 < C) {
-        store2(o + co, y0, y1);
-      } else {
-        if (co < C) o[co] = Cvt<T>::from(y0);
-        if (co + 1 < C) o[co + 1] = Cvt<T>::from(y1);
-      }
-    }
-  }
+  store_slice<T>(a, w, n, n0, r0, c0, e.b1, false, acc, acc_lo);
 }
 
 // ---------------------------------------------------------- K3 and K4
@@ -508,7 +463,7 @@ __device__ __forceinline__ void sep_products(const Edge& e, const Args& a, int n
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  depthwise_k<T, true>(k, X, xw, C, cpad, pb, e.dwk1, D, eh, ew);
+  depthwise_k<T, true>(k, X, xw, pb, C, cpad, e.dwk1, D, pb, eh, ew);
 
   // pw1 over the M1 stage-1 pixels and all O8 outputs, in chunks of ns
   // output channels (the warp's fragments of a chunk as of the slice);
@@ -547,7 +502,7 @@ __device__ __forceinline__ void sep_products(const Edge& e, const Args& a, int n
     }
     __syncthreads();  // the stage is refilled next; the mid is whole after the last
   }
-  depthwise_k<T, false>(k, X, ew, C, cpad, pb, e.dwk2, D, th, tw);
+  depthwise_k<T, false>(k, X, ew, pb, C, cpad, e.dwk2, D, pb, th, tw);
   // pw2: one tap on dw2 (rows of tw pixels) over the block's slice; the
   // routine's first barrier orders dw2's writes before its reads
   tap_gemm<T, false>(w.a_row(D, tw, tw, th * tw), tw, 1, 1, static_cast<const unsigned char*>(e.pk2) + n0 * rb,
@@ -675,25 +630,14 @@ int launch_kernel(const void* kernel, const Args& a, dim3 grid, int threads, voi
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_stage(const Args& a, void* stream) {
-  if (a.th <= 0 || a.tw <= 0 || a.tw % PX || a.O8 % OG || a.O8 < a.C || a.C <= 0 ||
-      (size_t)a.smem < stage_smem(a) || a.smem > SMEM_MAX)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const void* kernel = a.is_bf16 ? (const void*)sep_stage_kernel<__nv_bfloat16>
-                                 : (const void*)sep_stage_kernel<float>;
-  const dim3 grid((a.W + a.tw - 1) / a.tw, (a.H + a.th - 1) / a.th, a.N);
-  return launch_kernel(kernel, a, grid, THREADS, stream);
-}
-
-// K3, K4 and K6 share their plan's checks: a tile of at most 64 pixels,
-// an N-slice of whole n8 fragments that divides O8, a grant that covers
-// the carve-up.
-bool mma_plan_ok(const Args& a) {
+// K3-K6 share their plan's checks: a tile of at most 64 pixels, an
+// N-slice of whole n8 fragments that divides O8, a grant that covers the
+// kernel's carve-up `carve`.
+bool mma_plan_ok(const Args& a, size_t carve) {
   const int M = a.th * a.tw;
   return a.th > 0 && a.tw > 0 && M <= MMA_MWARPS * 16 && a.ng >= 1 && a.ng <= MMA_GROUPS &&
          a.C > 0 && a.O8 % OG == 0 && a.O8 >= a.C && a.ns > 0 && a.ns % OG == 0 &&
-         a.ns <= OG * NF_MAX && a.O8 % a.ns == 0 && (size_t)a.smem >= block_smem(a) &&
-         a.smem <= SMEM_MAX;
+         a.ns <= OG * NF_MAX && a.O8 % a.ns == 0 && (size_t)a.smem >= carve && a.smem <= SMEM_MAX;
 }
 
 dim3 mma_grid(const Args& a) {
@@ -702,9 +646,20 @@ dim3 mma_grid(const Args& a) {
 
 int mma_threads(const Args& a) { return (a.th * a.tw + 15) / 16 * a.ng * 32; }
 
+int launch_stage(const Args& a, void* stream) {
+  const Edge& e = a.e[0];
+  // the depthwise gives each thread one channel pair and two pixels of a row
+  if (a.n_edges != 1 || !mma_plan_ok(a, stage_smem(a)) || e.kind != SEP || (e.k != 3 && e.k != 5) ||
+      a.tw % 2 || !e.dwk1 || !e.b1 || !e.pk1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const void* kernel = a.is_bf16 ? (const void*)sep_stage_kernel<__nv_bfloat16>
+                                 : (const void*)sep_stage_kernel<float>;
+  return launch_kernel(kernel, a, mma_grid(a), mma_threads(a), stream);
+}
+
 int launch_dense(const Args& a, void* stream) {
   const Edge& e = a.e[0];
-  if (a.n_edges != 1 || !mma_plan_ok(a) || e.kind != DIL || e.k <= 0 || e.dil <= 0 ||
+  if (a.n_edges != 1 || !mma_plan_ok(a, block_smem(a)) || e.kind != DIL || e.k <= 0 || e.dil <= 0 ||
       e.pk1 == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   const void* kernel = a.is_bf16 ? (const void*)dense_stage_kernel<__nv_bfloat16>
@@ -713,7 +668,7 @@ int launch_dense(const Args& a, void* stream) {
 }
 
 int launch_block(const Args& a, bool one_sep, void* stream) {
-  if (a.n_edges < 1 || a.n_edges > 2 || !mma_plan_ok(a)) return static_cast<int>(cudaErrorInvalidValue);
+  if (a.n_edges < 1 || a.n_edges > 2 || !mma_plan_ok(a, block_smem(a))) return static_cast<int>(cudaErrorInvalidValue);
   for (int i = 0; i < a.n_edges; ++i) {
     const Edge& e = a.e[i];
     // a sep edge's depthwise gives each thread one channel pair and two pixels of a row

@@ -54,8 +54,17 @@ EDGE_KINDS = {
 _KIND_CODE = {"skip": 0, "sep": 1, "dil": 2}
 
 SMEM_LIMIT = 232448  # 227 KB: the most shared memory one block may have on Hopper
-# K5 (CUDA cores): tiles (rows, columns) in order of preference.
+# The CUDA-core K5's tiles (PR 2), kept as the record of the widths it
+# took: the coverage tests of K5 and K6 read them.
 STAGE_TILES = ((8, 16), (8, 8), (4, 8), (4, 4))
+# K5 (tensor cores): the input channels in chunks of STAGE_CHUNK bytes
+# (csrc STAGE_CHUNK), whose A and weight rows are 16 bytes longer, so
+# that its shared memory does not grow with C and every width fits its
+# 8x8 tile (four warps). A 4x8 tile was never more than 3% faster at
+# the flagship widths, and up to 23% slower (PERF.md §6), so the plan
+# takes 8x8 only.
+SEP_STAGE_TILES = ((8, 8),)
+STAGE_CHUNK = 128
 # K3/K4 (tensor cores): one warp per 16 tile pixels, 4 of them, times one
 # or two warp groups. They recompute SepConv's stage 1 on a k//2 halo, so
 # they keep the 8x8 tile (at most 2.25x the stage-1 pixels, for sep5).
@@ -81,6 +90,12 @@ SM_SMEM = 233472   # shared memory of one H100 SM (228 KB)
 # its slice, against ~1 µs for each output channel of an fp32 dil5)
 TC_COST = {torch.bfloat16: 1 / 8, torch.float32: 3 / 4}
 BLOCK_FIXED = 2.0e6
+# K5's plan model: a block's fixed cost in the same units (copies and
+# barriers; the plans it picks at the flagship widths, the fastest or
+# within 3% in the card's sweep, hold for any value from 1e5 to 5e6), and
+# the registers a thread of its kernel holds (ptxas, PERF.md §6)
+STAGE_FIXED = 5.0e5
+STAGE_REGS = {torch.float32: 169, torch.bfloat16: 149}
 
 
 class Plan(NamedTuple):
@@ -97,7 +112,7 @@ class SepStageWeights(NamedTuple):
     and zero-padded to O8 = O rounded up to 8; bias (O8,) fp32. packed
     (1, O8, Cpad) holds pw with the input channels innermost, zero-padded
     to Cpad (``dense_cpad``): the tensor cores' B operand as one tap, which
-    K3 and K4 read; K5 and the plain version read pw."""
+    K3, K4 and K5 read; the plain version reads pw."""
 
     dwk: torch.Tensor
     pw: torch.Tensor
@@ -124,30 +139,10 @@ class DenseWeights(NamedTuple):
 # --------------------------------------------------------------- plans
 
 
-def _r16(n: int) -> int:
-    return (n + 15) // 16 * 16
-
-
-def _window_bytes(h: int, w: int, C: int, eb: int) -> int:
-    return _r16(h * w * (C | 1) * eb)  # odd channel pitch, as K5
-
-
 def _elem_bytes(dtype: torch.dtype) -> int:
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"the cell kernels take fp32 or bf16 states, not {dtype}")
     return torch.finfo(dtype).bits // 8
-
-
-def plan_sep_stage(name: str, C: int, dtype: torch.dtype) -> Optional[Plan]:
-    """K5's tile: input window with a k//2 halo plus the depthwise tile."""
-    if EDGE_KINDS.get(name, ("",))[0] != "sep":
-        raise ValueError(f"{name} is not a SepConv")
-    eb, r = _elem_bytes(dtype), EDGE_KINDS[name][1] // 2
-    for th, tw in STAGE_TILES:
-        smem = _window_bytes(th + 2 * r, tw + 2 * r, C, eb) + _window_bytes(th, tw, C, eb)
-        if smem <= SMEM_LIMIT:
-            return Plan((th, tw), smem)
-    return None
 
 
 def dense_cpad(C: int, dtype: torch.dtype) -> int:
@@ -317,6 +312,52 @@ def plan_sep_fused(name: str, C: int, dtype: torch.dtype, hw: Optional[Tuple[int
     return plan_block((name,), C, dtype, hw, N)
 
 
+def _stage_smem(name: str, th: int, tw: int, ns: int) -> int:
+    """K5's carve-up (csrc stage_smem): two stages of a chunk's raw window
+    (tile plus a k//2 halo, STAGE_CHUNK bytes a pixel) and of its ns weight
+    rows, and the chunk's A rows (the tile's depthwise output); A and
+    weight rows are STAGE_CHUNK + 16 bytes. The same in both dtypes."""
+    r, pitch = EDGE_KINDS[name][1] // 2, STAGE_CHUNK + 16
+    return 2 * ((th + 2 * r) * (tw + 2 * r) * STAGE_CHUNK + ns * pitch) + th * tw * pitch
+
+
+def stage_cost(name: str, C: int, dtype: torch.dtype, th: int, tw: int, ns: int) -> float:
+    """Modelled work of one K5 block, in fp32 depthwise taps: a fixed
+    STAGE_FIXED, the depthwise over the tile for all C input channels
+    (every slice recomputes it) and the pointwise product over the slice,
+    a tensor-core multiply-add counting TC_COST[dtype] taps."""
+    k = EDGE_KINDS[name][1]
+    return STAGE_FIXED + th * tw * C * k * k + TC_COST[dtype] * th * tw * ns * dense_cpad(C, dtype)
+
+
+@functools.lru_cache(maxsize=None)  # pure, and called on every launch
+def plan_sep_stage(name: str, C: int, dtype: torch.dtype, hw: Optional[Tuple[int, int]] = None,
+                   N: int = 1) -> Optional[Plan]:
+    """K5's plan: tile, N-slice and shared memory, with one warp group (two
+    were slower in the card's sweep: PERF.md §6). Without ``hw`` the
+    widest slice; with (H, W) and batch N, the one with the least modelled
+    time: waves of resident blocks (registers included) times
+    ``stage_cost``. Every slice recomputes the depthwise, so a narrower
+    slice buys blocks with work."""
+    if EDGE_KINDS.get(name, ("",))[0] != "sep":
+        raise ValueError(f"{name} is not a SepConv")
+    _elem_bytes(dtype)
+    fits = [
+        Plan((th, tw), smem, ns)
+        for th, tw in SEP_STAGE_TILES
+        for ns in _slices(C)
+        if (smem := _stage_smem(name, th, tw, ns)) <= SMEM_LIMIT
+    ]
+    if not fits or hw is None:
+        return fits[0] if fits else None
+
+    def cost(p: Plan) -> float:
+        waves = -(-dense_blocks(p, C, N, *hw) // (SM_COUNT * _resident(p, STAGE_REGS[dtype])))
+        return waves * stage_cost(name, C, dtype, *p.tile, p.ns)
+
+    return min(fits, key=cost)  # the first of equals: the wider slice
+
+
 # ------------------------------------------------------------- folding
 
 
@@ -430,7 +471,7 @@ class _Edge(ctypes.Structure):
     _fields_ = [
         ("src", ctypes.c_void_p), ("img_stride", ctypes.c_longlong),
         ("ps", ctypes.c_int), ("kind", ctypes.c_int), ("k", ctypes.c_int), ("dil", ctypes.c_int),
-        ("dwk1", ctypes.c_void_p), ("w1", ctypes.c_void_p), ("b1", ctypes.c_void_p),
+        ("dwk1", ctypes.c_void_p), ("b1", ctypes.c_void_p),
         ("pk1", ctypes.c_void_p), ("dwk2", ctypes.c_void_p), ("b2", ctypes.c_void_p),
         ("pk2", ctypes.c_void_p),
     ]
@@ -503,8 +544,8 @@ def _check_weights(tensors, x: torch.Tensor, fn: str):
 def _fill_edge(e: _Edge, x: torch.Tensor, name: str, w, like: torch.Tensor, fn: str):
     """One edge's source and weights: a sep edge's ``w`` is its stages
     (both for K3/K4, the one to run for K5), a dil edge's DenseWeights.
-    Taps and biases are fp32, pointwise and dense weights the state dtype:
-    K5 reads a stage's pw, the tensor-core kernels the packed forms."""
+    Taps and biases are fp32, the packed pointwise and dense weights the
+    state dtype."""
     kind, k, dil = EDGE_KINDS[name]
     e.img_stride, e.ps = _pixel_layout(x, like, f"{fn} source")
     e.src, e.kind, e.k, e.dil = x.data_ptr(), _KIND_CODE[kind], k, dil
@@ -521,7 +562,6 @@ def _fill_edge(e: _Edge, x: torch.Tensor, name: str, w, like: torch.Tensor, fn: 
             setattr(e, f"dwk{i}", st.dwk.data_ptr())
             setattr(e, f"b{i}", st.bias.data_ptr())
             setattr(e, f"pk{i}", st.packed.data_ptr())
-        e.w1 = w[0].pw.data_ptr()  # K5 runs the first stage it is given
     elif kind == "dil":
         packed = (k * k, o8, cpad)
         if (w.k, w.dil) != (k, dil) or tuple(w.q.shape) != (k * k, C, o8) or tuple(w.bias.shape) != (o8,) \
@@ -604,7 +644,8 @@ def sep_stage(x: torch.Tensor, name: str, w: SepStageWeights, in_relu: bool, out
     if x.device.type == "cpu":
         return sep_stage_reference(x, w, in_relu, out_relu)
     _check_state(x, "sep_stage")
-    plan = plan_sep_stage(name, x.shape[1], x.dtype)
+    N, C, H, W = x.shape
+    plan = plan_sep_stage(name, C, x.dtype, (H, W), N)
     if plan is None:
         raise _no_plan("sep_stage", name, x.shape[1], x.dtype)
     out = _new_state(x)

@@ -17,11 +17,11 @@ Phases, each printing JSON lines and raising on failure:
      the flagship's DAG widths (C, H, W) = (40, 129, 257), (80, 65, 129),
      (160, 33, 65), fp32 (TF32 off) and bf16: every block of the flagship
      genotype, a skip+sep and a one-edge block, and each conv op through
-     K4, K5 (two passes) and K6, with the route each block takes; each K3,
-     K4 and K6 row also gives its plan (tile, N-slices, warp groups, grid
-     blocks), achieved TFLOP/s and device time by torch.profiler (without
-     the host's share; K6 also cuDNN's), and each level the sum of K3's
-     times over the flagship's five blocks (one cell);
+     K4, K5 (two passes) and K6, with the route each block takes; every
+     row also gives its plan (tile, N-slices, warp groups, grid blocks),
+     achieved TFLOP/s and device time by torch.profiler (without the
+     host's share; K6 also cuDNN's), and each level the sum of K3's times
+     over the flagship's five blocks (one cell);
   5. the flagship ADD (C=2, F=20, B=5, 19 classes, seeded weights and BN
      statistics, fp32) per-exit logits on the card against the same model
      on the CPU at 129x257, with --cell-exec xla and flat;
@@ -453,11 +453,11 @@ def phase_cells(ctx):
                         ("sep_fused", co.plan_sep_fused(name, c, dtype, (h, w), 1), lambda: co.sep_fused(x, name, wts),
                          lambda: co.sep_fused_reference(x, *wts), None,
                          cell_bound([name], c, h, w, 1, dtype)),
-                        ("sep_stage", co.plan_sep_stage(name, c, dtype),
+                        ("sep_stage", co.plan_sep_stage(name, c, dtype, (h, w), 1),
                          lambda: co.sep_stage(x, name, wts[0], True, True),
                          lambda: co.sep_stage_reference(x, wts[0], True, True), None,
                          stage_bound(k, c, h, w, dtype)),
-                        ("sep_stage", co.plan_sep_stage(name, c, dtype),
+                        ("sep_stage", co.plan_sep_stage(name, c, dtype, (h, w), 1),
                          lambda: co.sep_stage(mid, name, wts[1], False, False),
                          lambda: co.sep_stage_reference(mid, wts[1], False, False), None,
                          stage_bound(k, c, h, w, dtype)),
@@ -469,15 +469,15 @@ def phase_cells(ctx):
                     row = _measure(fn, ref, tol, f"{kernel} {dname} C={c} {name}", lib)
                     row.update(kernel=kernel, dtype=dname, shape=[c, h, w], op=name, tile=list(plan.tile),
                                bound_ms=bms, bound_by=bby)
-                    if kernel in ("dense_stage", "sep_fused"):
-                        with torch.inference_mode():
-                            dev = device_ms(fn)
-                            if lib is not None:
-                                row["library_device_ms"] = device_ms(lib)
-                        gflop = h * w * sum(_edge_flops(name, c)) / 1e9
-                        row.update(blocks=co.dense_blocks(plan, c, 1, h, w), n_split=-(-c // 8) * 8 // plan.ns,
-                                   ns=plan.ns, ng=plan.ng, tflops=gflop / row["ms"], device_ms=dev,
-                                   device_tflops=gflop / dev if dev else None)
+                    with torch.inference_mode():
+                        dev = device_ms(fn)
+                        if lib is not None:
+                            row["library_device_ms"] = device_ms(lib)
+                    # one K5 pass is one of a SepConv's two stages
+                    gflop = h * w * sum(_edge_flops(name, c)) / 1e9 / (2 if kernel == "sep_stage" else 1)
+                    row.update(blocks=co.dense_blocks(plan, c, 1, h, w), n_split=-(-c // 8) * 8 // plan.ns,
+                               ns=plan.ns, ng=plan.ng, tflops=gflop / row["ms"], device_ms=dev,
+                               device_tflops=gflop / dev if dev else None)
                     rows.append(row)
     for row in rows:
         emit({"phase": "cell_kernels", **row})

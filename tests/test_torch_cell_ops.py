@@ -215,7 +215,8 @@ def test_routes_at_flagship_widths(key):
         plan = pt_cell.plan_block(names, key[1], dtype)
         assert plan is None or plan.smem <= pt_cell.SMEM_LIMIT
     assert pt_cell.plan_sep_fused("sep_conv_5x5", 160, torch.float32) is None
-    assert pt_cell.plan_sep_stage("sep_conv_5x5", 160, torch.float32).tile == (8, 8)
+    plan = pt_cell.plan_sep_stage("sep_conv_5x5", 160, torch.float32)
+    assert (plan.tile, plan.ns) == ((8, 8), 40) and plan.smem <= pt_cell.SMEM_LIMIT
     plan = pt_cell.plan_dense_stage("dil_conv_5x5", 320, torch.float32)
     assert (plan.tile, plan.ns) == ((2, 8), 8) and plan.smem <= pt_cell.SMEM_LIMIT
 
@@ -391,6 +392,105 @@ def test_k3_3xtf32_split_holds_fp32_tolerance_on_a_pointwise_product():
     scale = ref.abs().max().item()
     err3 = (three.double() - ref).abs().max().item() / scale
     err1 = (dh @ wh.t()).double().sub(ref).abs().max().item() / scale
+    assert err3 <= 1e-4 and err3 * 100 <= err1
+
+
+# ------------------------------------------------ K5 (tensor-core) host side
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_k5_plans_at_flagship_widths(dtype):
+    """At the flagship's DAG widths K5's plan fits 227 KB, and its grid
+    (tiles x N-slices) has at least one block for each of the 132 SMs, at
+    level 3 (C=160, 33x65) too; its shared memory does not grow with C."""
+    for c, hw in ((40, (129, 257)), (80, (65, 129)), (160, (33, 65))):
+        for name in ("sep_conv_3x3", "sep_conv_5x5"):
+            plan = pt_cell.plan_sep_stage(name, c, dtype, hw, 1)
+            assert plan.tile in pt_cell.SEP_STAGE_TILES and plan.ng in (1, 2)
+            assert plan.smem == pt_cell._stage_smem(name, *plan.tile, plan.ns) <= pt_cell.SMEM_LIMIT
+            assert plan.ns % 8 == 0 and (-(-c // 8) * 8) % plan.ns == 0 and plan.ns <= pt_cell.DENSE_NS_MAX
+            assert pt_cell.dense_blocks(plan, c, 1, *hw) >= pt_cell.SM_COUNT, (c, name)
+        wide, narrow = (pt_cell.plan_sep_stage("sep_conv_5x5", cc, dtype) for cc in (1160, c))
+        assert wide.smem == narrow.smem
+
+
+def test_k5_plans_cover_the_cuda_core_kernels_widths():
+    """Every width and k the CUDA-core K5 (its input window with a k//2
+    halo plus the depthwise tile, both at a (C|1) pitch, on a STAGE_TILES
+    tile) took still has a plan, in both dtypes: the new K5 refuses
+    nothing new."""
+
+    def window(h, w, c, eb):
+        return -(-h * w * (c | 1) * eb // 16) * 16
+
+    for dtype in (torch.float32, torch.bfloat16):
+        eb = torch.finfo(dtype).bits // 8
+        for name in ("sep_conv_3x3", "sep_conv_5x5"):
+            r = int(name[-1]) // 2
+            old = [c for c in range(1, 1200)
+                   if any(window(th + 2 * r, tw + 2 * r, c, eb) + window(th, tw, c, eb) <= pt_cell.SMEM_LIMIT
+                          for th, tw in pt_cell.STAGE_TILES)]
+            assert old and all(pt_cell.plan_sep_stage(name, c, dtype) is not None for c in old), (name, dtype)
+            assert all(pt_cell.plan_sep_stage(name, c, dtype, (33, 65), 2) is not None for c in old[::37])
+
+
+def _k5_emulated(x, w, plan, in_relu, out_relu, three=True):
+    """K5's fp32 arithmetic as the kernel runs it, in torch: for each th x
+    tw tile and N-slice, the input channels in 128-byte chunks (32 fp32):
+    the chunk's raw window (tile plus a k//2 halo, 0 outside the image and
+    past C, ReLU'd at the read), its depthwise in fp32, then its 3xTF32
+    product with the chunk's packed weights (lo*hi + hi*lo and hi*hi in two
+    fp32 sums; plain TF32, hi*hi alone, without ``three``), added once to
+    the bias at the end, ReLU'd by flag."""
+    N, C, H, W = x.shape
+    (th, tw), ns, r = plan.tile, plan.ns, w.k // 2
+    ch, cpad = pt_cell.STAGE_CHUNK // 4, pt_cell.dense_cpad(C, torch.float32)
+    src = x.relu() if in_relu else x
+    xp = torch.nn.functional.pad(src, (r, r + tw, r, r + th, 0, cpad - C))  # halo, ragged tiles, pad channels
+    dwk = torch.nn.functional.pad(w.dwk, (0, 0, 0, cpad - C)).view(cpad, 1, w.k, w.k)
+    packed = w.packed[0]
+    out = torch.zeros(N, packed.shape[0], -(-H // th) * th, -(-W // tw) * tw)
+    for ty in range(0, H, th):
+        for tx in range(0, W, tw):
+            for n0 in range(0, packed.shape[0], ns):
+                acc = acc_lo = torch.zeros(N, th * tw, ns)
+                for ch0 in range(0, cpad, ch):
+                    cw = min(ch, cpad - ch0)
+                    win = xp[:, ch0:ch0 + cw, ty:ty + th + 2 * r, tx:tx + tw + 2 * r]
+                    a = torch.nn.functional.conv2d(win, dwk[ch0:ch0 + cw], groups=cw).flatten(2).transpose(1, 2)
+                    b = packed[n0:n0 + ns, ch0:ch0 + cw]
+                    ah, bh = tf32(a), tf32(b)
+                    al, bl = (tf32(a - ah), tf32(b - bh)) if three else (0 * a, 0 * b)
+                    acc_lo = acc_lo + al @ bh.t() + ah @ bl.t()
+                    acc = acc + ah @ bh.t()
+                y = acc_lo + acc + w.bias[n0:n0 + ns]
+                y = y.relu() if out_relu else y
+                out[:, n0:n0 + ns, ty:ty + th, tx:tx + tw] = y.transpose(1, 2).reshape(N, ns, th, tw)
+    return out[:, :C, :H, :W]
+
+
+@pytest.mark.parametrize("relus", [(True, True), (False, False)], ids=["relu", "norelu"])
+@pytest.mark.parametrize("name,tile,ns", [("sep_conv_5x5", (8, 8), 40), ("sep_conv_3x3", (4, 8), 8),
+                                          ("sep_conv_5x5", (8, 8), 8)])
+def test_k5_chunked_3xtf32_emulated_matches_plain(name, tile, ns, relus):
+    """K5's fp32 scheme emulated (chunked depthwise, 3xTF32 pointwise) at
+    C=37 (chunks of 32 + 8 channels, O8 = 40), 13 x 17 at N=2 (tiles run
+    past the image on both axes), against the plain version: relative
+    1e-4; plain TF32 products are two orders of magnitude further off."""
+    c = 37
+    torch.manual_seed(7)
+    pm = PT_OPS[name](c, 1)
+    with torch.no_grad():
+        for p in pm.parameters():
+            p.normal_()
+        pm.bn1.mean.normal_()
+        pm.bn1.var.uniform_(0.5, 2.0)
+    w = pt_cell.edge_weights(pm, name, torch.float32)[0]
+    x = torch.from_numpy(np.random.RandomState(3).randn(2, c, 13, 17).astype(np.float32))
+    plan = pt_cell.Plan(tile, pt_cell._stage_smem(name, *tile, ns), ns)
+    ref = pt_cell.sep_stage_reference(x, w, *relus)
+    err3, err1 = ((_k5_emulated(x, w, plan, *relus, three=t) - ref).abs().max().item() / ref.abs().max().item()
+                  for t in (True, False))
     assert err3 <= 1e-4 and err3 * 100 <= err1
 
 

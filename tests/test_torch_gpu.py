@@ -284,6 +284,59 @@ def test_k3_every_slice_on_gpu(names, ns, ng, dtype):
     assert _rel_err(out, ref) <= _tol(dtype)
 
 
+def _k5_plans(c):
+    """Every plan K5's model can pick at width c: tile x N-slice, with one
+    and (for slices of two or more fragments) two warp groups."""
+    return [pt_cell.Plan(tile, pt_cell._stage_smem("sep_conv_5x5", *tile, ns), ns, ng)
+            for tile in pt_cell.SEP_STAGE_TILES for ns in pt_cell._slices(c) for ng in ((1, 2) if ns >= 16 else (1,))]
+
+
+@needs_gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("plan", _k5_plans(75), ids=lambda p: f"{p.tile}-{p.ns}-{p.ng}")
+def test_k5_every_plan_on_gpu(plan, dtype):
+    """K5 under each plan its model may pick, sep3 and sep5, with and
+    without ReLU on input and output, on a strided C=75 source at N=2:
+    C is not a multiple of the 128-byte chunk (fp32: 32 + 32 + 16 channels,
+    bf16: 64 + 16), and the tiles run past the 13 x 17 image on both axes."""
+    torch.backends.cudnn.allow_tf32 = False
+    c, hw = 75, (13, 17)
+    x = _state(2, c, hw, dtype, seed=9, width=88)
+    out = torch.empty(2, *hw, c, device="cuda", dtype=dtype).permute(0, 3, 1, 2)
+    for i, name in enumerate(("sep_conv_3x3", "sep_conv_5x5")):
+        w = pt_cell.edge_weights(_op(name, c, 24 + i), name, dtype)[i]
+        p = plan._replace(smem=pt_cell._stage_smem(name, *plan.tile, plan.ns))
+        for in_relu, out_relu in ((True, True), (False, False)):
+            with torch.inference_mode():
+                pt_cell._launch("sep_stage", x, [(x, name, (w,))], p, out, in_relu, out_relu)
+                ref = pt_cell.sep_stage_reference(x, w, in_relu, out_relu)
+            torch.cuda.synchronize()
+            assert _rel_err(out, ref) <= _tol(dtype), (name, in_relu, out_relu)
+
+
+@needs_gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["sep_conv_3x3", "sep_conv_5x5"])
+def test_k5_at_flagship_level3_matches_plain_on_gpu(name, dtype):
+    """K5 at the flagship's level-3 width and size (C=160, 33x65), where
+    fp32's (sep5, sep5) and (dil5, sep5) blocks run it per op: its plan's
+    grid fills the 132 SMs; both stages of a SepConv."""
+    torch.backends.cudnn.allow_tf32 = False
+    c, hw = 160, (33, 65)
+    plan = pt_cell.plan_sep_stage(name, c, dtype, hw, 1)
+    assert pt_cell.dense_blocks(plan, c, 1, *hw) >= pt_cell.SM_COUNT
+    x = _state(1, c, hw, dtype, seed=10)
+    w1, w2 = pt_cell.edge_weights(_op(name, c, 26), name, dtype)
+    before = pt_cell.sep_stage.launches
+    with torch.inference_mode():
+        mid = pt_cell.sep_stage(x, name, w1, True, True)
+        ref_mid = pt_cell.sep_stage_reference(x, w1, True, True)
+        got, ref = pt_cell.sep_stage(mid, name, w2, False, False), pt_cell.sep_stage_reference(mid, w2, False, False)
+    torch.cuda.synchronize()
+    assert pt_cell.sep_stage.launches == before + 2
+    assert _rel_err(mid, ref_mid) <= _tol(dtype) and _rel_err(got, ref) <= _tol(dtype)
+
+
 def _sass_functions(name: str, kernel: str):
     """The SASS of every instance of ``kernel`` in the built csrc/<name>.cu."""
     import os
@@ -307,6 +360,15 @@ def test_k6_runs_on_the_tensor_cores():
         found = _sass_functions("cell_ops", kernel)
         assert len(found) == instances, [f.splitlines()[0] for f in found]
         assert all("HMMA" in f for f in found), kernel
+
+
+@needs_gpu
+def test_k5_runs_on_the_tensor_cores():
+    """The built library's two K5 kernels (bf16, fp32) hold HMMA
+    instructions: their pointwise products run on the tensor cores."""
+    found = _sass_functions("cell_ops", "sep_stage_kernel")
+    assert len(found) == 2, [f.splitlines()[0] for f in found]
+    assert all("HMMA" in f for f in found)
 
 
 @needs_gpu
@@ -369,10 +431,13 @@ def test_cell_plans_match_the_kernels_carveup():
                         kind, e.k, e.dil = pt_cell.EDGE_KINDS[name]
                         e.kind = pt_cell._KIND_CODE[kind]
                     assert lib.add_cell_smem_bytes(0, ctypes.byref(a)) == plan.smem, (names, c, dtype)
-            # K6 on its own and with the grid weighed at 33x65 (N-split included)
+            # K5 and K6 on their own and with the grid weighed at 33x65 (N-split included)
+            k5_at_level3 = lambda *p: pt_cell.plan_sep_stage(*p, (33, 65))  # noqa: E731
             k6_at_level3 = lambda *p: pt_cell.plan_dense_stage(*p, (33, 65))  # noqa: E731
             for which, plan_fn, name in ((1, pt_cell.plan_sep_fused, "sep_conv_5x5"),
                                          (2, pt_cell.plan_sep_stage, "sep_conv_5x5"),
+                                         (2, k5_at_level3, "sep_conv_5x5"),
+                                         (2, k5_at_level3, "sep_conv_3x3"),
                                          (3, pt_cell.plan_dense_stage, "dil_conv_5x5"),
                                          (3, k6_at_level3, "dil_conv_5x5"),
                                          (3, pt_cell.plan_dense_stage, "dil_conv_3x3")):
