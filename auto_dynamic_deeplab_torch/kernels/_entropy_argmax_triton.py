@@ -6,32 +6,47 @@ import triton.language as tl
 
 @triton.jit
 def entropy_argmax_kernel(
-    x_ptr, part_ptr, arg_ptr,
-    HW, C,
-    stride_n, stride_p, stride_c,
-    BLOCK_P: tl.constexpr, BLOCK_C: tl.constexpr,
+    x_ptr, part_ptr, count_ptr, ent_ptr, arg_ptr,
+    HW, C, stride_n, stride_p, stride_c, n_blocks, log_c,
+    BLOCK_P: tl.constexpr, BLOCK_C: tl.constexpr, R_BLOCK: tl.constexpr,
 ):
-    """One block of BLOCK_P pixels of image program_id(1): per-pixel
-    entropy (summed into one partial per program) and first-max argmax."""
+    """Program program_id(0) of image program_id(1): walks the image's
+    blocks of BLOCK_P pixels with a stride of num_programs(0), writes each
+    pixel's first-max argmax and keeps its entropy sum in registers; then
+    stores that sum as its partial and takes a ticket from the image's
+    counter. The program that takes the last ticket sums the partials in a
+    fixed order, writes the image's normalized entropy and resets the
+    counter to 0 for the next call."""
     pid = tl.program_id(0)
+    progs = tl.num_programs(0)
     n = tl.program_id(1)
-    p = pid * BLOCK_P + tl.arange(0, BLOCK_P)
     c = tl.arange(0, BLOCK_C)
-    pmask = p < HW
-    mask = pmask[:, None] & (c < C)[None, :]
-    ptrs = (
-        x_ptr + n.to(tl.int64) * stride_n
-        + (p.to(tl.int64) * stride_p)[:, None] + (c.to(tl.int64) * stride_c)[None, :]
-    )
-    # padded classes (and pixels past the end) are -inf: exp → 0, never argmax
-    x = tl.load(ptrs, mask=mask, other=float("-inf")).to(tl.float32)
-    m = tl.where(pmask, tl.max(x, axis=1), 0.0)
-    s = x - m[:, None]
-    e = tl.exp(s)
-    z = tl.sum(e, axis=1)
-    # H = -Σ p log p = log Z - Σ e·s / Z: no 0·log 0 term
-    ent = tl.log(z) - tl.sum(tl.where(mask, e * s, 0.0), axis=1) / z
-    ent = tl.where(pmask, ent, 0.0)
-    tl.store(part_ptr + n * tl.num_programs(0) + pid, tl.sum(ent, axis=0))
-    arg = tl.argmax(x, axis=1, tie_break_left=True)
-    tl.store(arg_ptr + n.to(tl.int64) * HW + p, arg.to(tl.int32), mask=pmask)
+    cmask = c < C
+    base = x_ptr + n.to(tl.int64) * stride_n
+    acc = tl.zeros([BLOCK_P], dtype=tl.float32)
+    for b in range(pid, n_blocks, progs):
+        p = b * BLOCK_P + tl.arange(0, BLOCK_P)
+        pmask = p < HW
+        mask = pmask[:, None] & cmask[None, :]
+        ptrs = base + (p.to(tl.int64) * stride_p)[:, None] + (c.to(tl.int64) * stride_c)[None, :]
+        # padded classes (and pixels past the end) are -inf: exp → 0, never argmax
+        x = tl.load(ptrs, mask=mask, other=float("-inf")).to(tl.float32)
+        m = tl.where(pmask, tl.max(x, axis=1), 0.0)
+        s = x - m[:, None]
+        e = tl.exp(s)
+        z = tl.sum(e, axis=1)
+        # H = -Σ p log p = log Z - Σ e·s / Z: no 0·log 0 term
+        ent = tl.log(z) - tl.sum(tl.where(mask, e * s, 0.0), axis=1) / z
+        acc += tl.where(pmask, ent, 0.0)
+        arg = tl.argmax(x, axis=1, tie_break_left=True)
+        tl.store(arg_ptr + n.to(tl.int64) * HW + p, arg.to(tl.int32), mask=pmask)
+    tl.store(part_ptr + n * progs + pid, tl.sum(acc, axis=0))
+    # every thread's store is done before the release of the ticket
+    tl.debug_barrier()
+    ticket = tl.atomic_add(count_ptr + n, 1, sem="acq_rel")
+    if ticket == progs - 1:
+        r = tl.arange(0, R_BLOCK)
+        # past L1: the partials were written by other programs
+        parts = tl.load(part_ptr + n * progs + r, mask=r < progs, other=0.0, cache_modifier=".cg")
+        tl.store(ent_ptr + n, tl.sum(parts, axis=0) / HW / log_c)
+        tl.store(count_ptr + n, 0)

@@ -11,25 +11,72 @@ written: 26 us in bf16, 50 us in fp32 at 3.35 TB/s. The arithmetic
 (a max, 19 exps, a log and a few sums per pixel) is far below the card's
 rate.
 
-Design: each program reads a block of pixels of one image with all C
-classes padded to a power of two (padded classes load as -inf, so they add
-0 to Z and never win the argmax), computes the max m, Z = Σ exp(x - m) and
-the entropy as log Z - Σ e·(x - m) / Z, writes the argmax, and writes one
-partial entropy sum. The wrapper reduces the partials with one
-deterministic torch.sum (no atomics) and divides by H·W and log(num_classes).
-It takes class-leading (N, C, H, W) and NHWC logits of any memory format
-whose pixels are evenly strided (both contiguous layouts and channels_last),
-at any N, in fp32 or bf16. Triton is imported only when the kernel launches.
+Design: one launch per call, with no memset and no follow-up op. A
+persistent grid of ``K2_CONFIG.per_sm`` programs per SM (``plan``) is
+shared among the N images; each program walks its image's blocks of
+BLOCK_P pixels with a stride, with all C classes padded to a power of two
+(padded classes load as -inf, so they add 0 to Z and never win the
+argmax): per pixel the max m, Z = Σ exp(x - m), the entropy log Z - Σ
+e·(x - m) / Z summed in registers, and the argmax written. At its end a
+program stores its partial sum and takes a ticket from its image's counter
+(an acquire-release atomic); the program that takes the last ticket sums
+the partials in a fixed order (deterministic, no fp32 atomics), writes the
+image's entropy / (H·W) / log(num_classes) and resets the counter. The
+partials and counters are allocated once per (device, stream) and reused
+(``_scratch``): the kernel leaves the counters at 0. It takes
+class-leading (N, C, H, W) and NHWC logits of any memory format whose
+pixels are evenly strided (both contiguous layouts and channels_last), at
+any N, in fp32 or bf16. Triton is imported only when the kernel launches.
 """
 from __future__ import annotations
 
+import functools
 import math
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
 from ..ops.confidence import normalized_shannon_entropy
 
-BLOCK_P = 256  # pixels per program
+
+class K2Config(NamedTuple):
+    block_p: int  # pixels a program takes at a time
+    num_warps: int
+    per_sm: int  # programs per SM, shared among the images
+
+
+K2_CONFIG = K2Config(block_p=256, num_warps=4, per_sm=4)
+
+
+class K2Plan(NamedTuple):
+    programs: int  # per image: grid (programs, N)
+    n_blocks: int  # blocks of block_p pixels per image
+    r_block: int  # the partials' reduction width: a power of two >= programs
+
+
+def plan(n: int, hw: int, sm_count: int, config: K2Config = K2_CONFIG) -> K2Plan:
+    """K2's grid: config.per_sm programs for each SM, shared among the n
+    images, at least one per image and at most one per block."""
+    n_blocks = -(-hw // config.block_p)
+    programs = max(1, min(n_blocks, -(-sm_count * config.per_sm // n)))
+    return K2Plan(programs, n_blocks, 1 << (programs - 1).bit_length())
+
+
+_SCRATCH: Dict[Tuple[torch.device, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _scratch(device: torch.device, stream: int, n: int, programs: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(partials, counters): at least n * programs fp32 and n int32 zeros,
+    kept per (device, stream) and grown when a call needs more. Only a
+    call that grows them launches anything (the zeros); the kernel leaves
+    its counters at 0, and calls on one stream run in order."""
+    parts, counts = _SCRATCH.get((device, stream), (None, None))
+    if parts is None or parts.numel() < n * programs or counts.numel() < n:
+        grown = max(n * programs, 0 if parts is None else parts.numel())
+        parts = torch.empty(grown, dtype=torch.float32, device=device)
+        counts = torch.zeros(max(n, 0 if counts is None else counts.numel()), dtype=torch.int32, device=device)
+        _SCRATCH[(device, stream)] = parts, counts
+    return parts, counts
 
 
 def entropy_argmax_reference(
@@ -43,9 +90,10 @@ def entropy_argmax_reference(
 
 
 def entropy_argmax_triton(
-    logits: torch.Tensor, num_classes: int = 19, class_axis: int = -1
+    logits: torch.Tensor, num_classes: int = 19, class_axis: int = -1, config: K2Config = None
 ):
-    """Launch K2 on CUDA ``logits``; same contract as the plain version."""
+    """Launch K2 on CUDA ``logits``; same contract as the plain version.
+    ``config`` replaces K2_CONFIG (the launch tuned on the card)."""
     if logits.device.type != "cuda":
         raise ValueError(f"entropy_argmax_triton needs a CUDA tensor, got {logits.device}")
     if logits.dim() != 4:
@@ -66,16 +114,24 @@ def entropy_argmax_triton(
 
     from ._entropy_argmax_triton import entropy_argmax_kernel
 
-    grid = (triton.cdiv(h * w, BLOCK_P), n)
-    partials = torch.empty(grid[::-1], dtype=torch.float32, device=logits.device)
-    arg = torch.empty((n, h, w), dtype=torch.int32, device=logits.device)
-    entropy_argmax_kernel[grid](
-        logits, partials, arg, h * w, c, sn, sw, sc,
-        BLOCK_P=BLOCK_P, BLOCK_C=triton.next_power_of_2(c), num_warps=4,
+    config = K2_CONFIG if config is None else config
+    dev = logits.device
+    k2 = plan(n, h * w, _sm_count(dev), config)
+    parts, counts = _scratch(dev, torch.cuda.current_stream(dev).cuda_stream, n, k2.programs)
+    ent = torch.empty((n,), dtype=torch.float32, device=dev)
+    arg = torch.empty((n, h, w), dtype=torch.int32, device=dev)
+    entropy_argmax_kernel[(k2.programs, n)](
+        logits, parts, counts, ent, arg, h * w, c, sn, sw, sc, k2.n_blocks, math.log(num_classes),
+        BLOCK_P=config.block_p, BLOCK_C=triton.next_power_of_2(c), R_BLOCK=k2.r_block,
+        num_warps=config.num_warps,
     )
     entropy_argmax_triton.launches += 1
-    ent = partials.sum(dim=1) / (h * w) / math.log(num_classes)
     return ent, arg
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 entropy_argmax_triton.launches = 0

@@ -12,7 +12,10 @@ Phases, each printing JSON lines and raising on failure:
      and bf16, each with its plan (tile, shared memory, blocks); the
      full-size rows with CUDA-event and profiler (device) times, achieved
      TFLOP/s and the bound;
-  3. K2 (entropy + argmax, Triton) against its plain version;
+  3. K2 (entropy + argmax, Triton) against its plain version, each call
+     compared bitwise with two more (N=3 too); the full-size rows with
+     CUDA-event and profiler (device) times and the count of device
+     kernels one call launches, which must be 1;
   4. K3-K6 (the cell kernels, CUDA C++) against their plain versions at
      the flagship's DAG widths (C, H, W) = (40, 129, 257), (80, 65, 129),
      (160, 33, 65), fp32 (TF32 off) and bf16: every block of the flagship
@@ -123,6 +126,24 @@ def device_ms(fn, runs: int = 10, tries: int = 10):
             return sum(e.time_range.elapsed_us() for e in kernels) / runs / 1e3
     print(f"device_ms: the profiler recorded {len(kernels)} kernels for {runs} calls, {tries} times: "
           "not measured", file=sys.stderr, flush=True)
+    return None
+
+
+def kernels_per_call(fn, runs: int = 10, tries: int = 10):
+    """Device kernels (memsets and copies included) that one call of ``fn``
+    launches, by torch.profiler: the count over ``runs`` calls divided by
+    ``runs``, from the first session whose count is a whole multiple of
+    ``runs`` (see ``device_ms``); None (not measured) when none was."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kernels and len(kernels) % runs == 0:
+            return len(kernels) // runs
     return None
 
 
@@ -355,8 +376,21 @@ def phase_k2(ctx):
                 raise AssertionError(f"K2 {dtype} {layout} {shape}: argmax differs")
             row = {"dtype": str(dtype).split(".")[-1], "layout": layout, "shape": list(shape),
                    "max_abs_err": err, "tol": tol, "argmax_equal": True}
+            fn = lambda: entropy_argmax_triton(x, 19, class_axis=axis)  # noqa: E731
+            # repeated calls: bitwise the same (at N=3 this also checks that
+            # each launch leaves its images' counters at 0 for the next)
+            for _ in range(2):
+                again = fn()
+                if not (torch.equal(again[0], ent) and torch.equal(again[1], arg)):
+                    raise AssertionError(f"K2 {dtype} {layout} {shape}: a repeated call differs")
+            row["repeat_bitwise_equal"] = True
             if shape[0] == 1:
-                row["ms"] = cuda_ms(lambda: entropy_argmax_triton(x, 19, class_axis=axis))
+                row["ms"] = cuda_ms(fn)
+                row["device_ms"] = device_ms(fn)
+                row["device_kernels_per_call"] = kernels_per_call(fn)
+                if row["device_kernels_per_call"] != 1:
+                    raise AssertionError(f"K2 {dtype} {layout}: {row['device_kernels_per_call']} device "
+                                         "kernels a call, want 1")
                 row["plain_ms"] = cuda_ms(lambda: entropy_argmax_reference(x, 19, class_axis=axis))
                 row["bound_ms"], row["bound_by"] = entropy_bound(
                     1, 19, *FULL_HW, torch.finfo(dtype).bits // 8

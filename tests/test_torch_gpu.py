@@ -125,6 +125,44 @@ def test_k2_matches_plain_on_gpu(layout, dtype):
     assert torch.equal(arg, arg_r)
 
 
+def _device_kernels(fn, tries=5):
+    """Names of the device kernels (memsets and copies included) one call
+    of ``fn`` launches, by torch.profiler. A session now and then records
+    fewer kernels than were launched (chip_smoke.py::device_ms), so the
+    largest of a few sessions' lists is taken."""
+    seen = []
+    for _ in range(tries):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        seen = max(seen, names, key=len)
+    return seen
+
+
+@needs_gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,hw", [(3, (65, 97)), (2, (257, 513))])
+def test_k2_one_launch_deterministic_on_gpu(n, hw, dtype):
+    """K2 launches exactly one device kernel per call (no memset, no
+    reduction after it), gives bitwise-equal results on repeated calls, and
+    stays right over repeated calls at N > 1 (each image's counter is reset
+    by the launch that used it). At 257 x 513 a program walks several
+    blocks; at 65 x 97 fewer blocks than programs are left."""
+    g = torch.Generator().manual_seed(2)
+    x = (torch.randn(n, 19, *hw, generator=g) * 3).cuda().to(dtype)
+    first = pt_conf.entropy_argmax_triton(x, 19, class_axis=1)
+    kernels = _device_kernels(lambda: pt_conf.entropy_argmax_triton(x, 19, class_axis=1))
+    assert kernels == ["entropy_argmax_kernel"], kernels
+    ent_r, arg_r = pt_conf.entropy_argmax_reference(x, 19, class_axis=1)
+    tol = 1e-5 if dtype == torch.float32 else 1e-4
+    for _ in range(3):
+        ent, arg = pt_conf.entropy_argmax_triton(x, 19, class_axis=1)
+        torch.cuda.synchronize()
+        assert torch.equal(ent, first[0]) and torch.equal(arg, first[1])
+        assert (ent - ent_r).abs().max().item() <= tol and torch.equal(arg, arg_r)
+
+
 def _state(n, c, hw, dtype, seed, width=None):
     """A seeded channels_last state; with ``width`` > c, a channel slice of
     a wider buffer (pixel stride ``width``), as the cell's concat hands out."""

@@ -271,3 +271,38 @@ def test_entropy_argmax_cpu_dispatch_uses_plain_version():
 def test_entropy_argmax_triton_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         pt_conf.entropy_argmax_triton(torch.from_numpy(_logits(1)), 19)
+
+
+@pytest.mark.parametrize("n,hw,sms", [(1, 1025 * 2049, 132), (3, 65 * 97, 132), (2, 257 * 513, 132),
+                                       (1, 37 * 53, 132), (8, 33 * 65, 16)])
+def test_k2_plan_covers_every_block_once(n, hw, sms):
+    """K2's persistent grid: per_sm programs for each SM shared among the
+    images (at the main path's 1025x2049, 132 * 4 programs), at least one
+    an image, never more than its blocks; the stride walk covers each
+    block once; the partials' reduction width is the power of two at or
+    above the program count."""
+    cfg = pt_conf.K2_CONFIG
+    p = pt_conf.plan(n, hw, sms)
+    assert p.n_blocks == -(-hw // cfg.block_p) and 1 <= p.programs <= p.n_blocks
+    assert p.programs == min(p.n_blocks, -(-sms * cfg.per_sm // n))
+    assert p.r_block >= p.programs > p.r_block // 2 and p.r_block & (p.r_block - 1) == 0
+    walked = sorted(b for pid in range(p.programs) for b in range(pid, p.n_blocks, p.programs))
+    assert walked == list(range(p.n_blocks))
+    if (n, hw) == (1, 1025 * 2049):
+        assert p.programs == 132 * cfg.per_sm
+
+
+def test_k2_scratch_is_kept_per_stream_and_grown(monkeypatch):
+    """The partials and counters are allocated once per (device, stream)
+    and reused while they suffice (a call then allocates nothing), grown
+    when a call needs more, and the counters start at 0."""
+    monkeypatch.setattr(pt_conf, "_SCRATCH", {})
+    dev = torch.device("cpu")
+    parts, counts = pt_conf._scratch(dev, 7, 1, 528)
+    assert parts.numel() == 528 and counts.numel() == 1 and not counts.any()
+    assert all(a is b for a, b in zip(pt_conf._scratch(dev, 7, 1, 100), (parts, counts)))
+    grown = pt_conf._scratch(dev, 7, 3, 176)
+    assert grown[0].numel() == 528 and grown[1].numel() == 3 and not grown[1].any()
+    assert grown[0] is not parts
+    other = pt_conf._scratch(dev, 8, 1, 528)
+    assert other[0] is not grown[0] and len(pt_conf._SCRATCH) == 2
