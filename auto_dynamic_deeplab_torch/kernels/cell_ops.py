@@ -6,8 +6,8 @@ gives their bound and design) work on the port's states as they are,
 NCHW logical in channels_last memory, so one pixel's C channels are
 contiguous. This module holds, for each kernel, its plain PyTorch version
 (``*_reference``), its ctypes wrapper with a ``launches`` counter, and its
-plan (the tile, the shared-memory bytes against 227 KB a block, and for
-the tensor-core kernels the output-channel slice and warp groups):
+plan (the tile, the shared-memory bytes against 227 KB a block, the
+output-channel slice and warp groups):
 
   K3 ``block_stage``  one DAG block: 1-2 edges (sep, dil, skip), fp32 sum
   K4 ``sep_fused``    one whole SepConv edge (K3's kernel with that edge)
@@ -704,13 +704,8 @@ def block_route(names: Sequence[str], C: int, dtype: torch.dtype) -> Tuple[str, 
     route = []
     for n in active:
         kind = EDGE_KINDS.get(n, ("pool",))[0]
-        if kind == "sep":
-            if plan_sep_fused(n, C, dtype) is not None:
-                route.append("sep_fused")
-            elif plan_sep_stage(n, C, dtype) is not None:
-                route += ["sep_stage", "sep_stage"]
-            else:
-                raise _no_plan("run_dag", n, C, dtype)
+        if kind == "sep":  # K5's shared memory does not grow with C: it takes every width
+            route += ["sep_fused"] if plan_sep_fused(n, C, dtype) is not None else ["sep_stage", "sep_stage"]
         elif kind == "dil":
             if plan_dense_stage(n, C, dtype) is None:
                 raise _no_plan("run_dag", n, C, dtype)

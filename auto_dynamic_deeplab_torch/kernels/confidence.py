@@ -14,13 +14,15 @@ rate.
 Design: one launch per call, with no memset and no follow-up op. A
 persistent grid of ``K2_CONFIG.per_sm`` programs per SM (``plan``) is
 shared among the N images; each program walks its image's blocks of
-BLOCK_P pixels with a stride, with all C classes padded to a power of two
-(padded classes load as -inf, so they add 0 to Z and never win the
-argmax): per pixel the max m, Z = Σ exp(x - m), the entropy log Z - Σ
-e·(x - m) / Z summed in registers, and the argmax written. At its end a
-program stores its partial sum and takes a ticket from its image's counter
-(an acquire-release atomic); the program that takes the last ticket sums
-the partials in a fixed order (deterministic, no fp32 atomics), writes the
+BLOCK_P pixels with a stride, one pixel a thread at the tuned launch, and
+each thread takes its pixel's classes one at a time, twice: the max and
+the first-max argmax, then Z = Σ exp(x - m) and the entropy log Z - Σ
+e·(x - m) / Z (the block's logits are in L1 by then), summed in
+registers. No class is padded and no reduction crosses threads until the
+program's end, so the pass costs the same in every layout. A program then
+stores its partial sum and takes a ticket from its image's counter (an
+acquire-release atomic); the program that takes the last ticket sums the
+partials in a fixed order (deterministic, no fp32 atomics), writes the
 image's entropy / (H·W) / log(num_classes) and resets the counter. The
 partials and counters are allocated once per (device, stream) and reused
 (``_scratch``): the kernel leaves the counters at 0. It takes
@@ -45,7 +47,9 @@ class K2Config(NamedTuple):
     per_sm: int  # programs per SM, shared among the images
 
 
-K2_CONFIG = K2Config(block_p=256, num_warps=4, per_sm=4)
+# tuned on the card (PERF.md §6, scripts/torch_bench_k2.py): one pixel a
+# thread, a full SM of threads
+K2_CONFIG = K2Config(block_p=256, num_warps=8, per_sm=8)
 
 
 class K2Plan(NamedTuple):
@@ -54,11 +58,11 @@ class K2Plan(NamedTuple):
     r_block: int  # the partials' reduction width: a power of two >= programs
 
 
-def plan(n: int, hw: int, sm_count: int, config: K2Config = K2_CONFIG) -> K2Plan:
-    """K2's grid: config.per_sm programs for each SM, shared among the n
+def plan(n: int, hw: int, sm_count: int) -> K2Plan:
+    """K2's grid: K2_CONFIG.per_sm programs for each SM, shared among the n
     images, at least one per image and at most one per block."""
-    n_blocks = -(-hw // config.block_p)
-    programs = max(1, min(n_blocks, -(-sm_count * config.per_sm // n)))
+    n_blocks = -(-hw // K2_CONFIG.block_p)
+    programs = max(1, min(n_blocks, -(-sm_count * K2_CONFIG.per_sm // n)))
     return K2Plan(programs, n_blocks, 1 << (programs - 1).bit_length())
 
 
@@ -90,10 +94,9 @@ def entropy_argmax_reference(
 
 
 def entropy_argmax_triton(
-    logits: torch.Tensor, num_classes: int = 19, class_axis: int = -1, config: K2Config = None
+    logits: torch.Tensor, num_classes: int = 19, class_axis: int = -1
 ):
-    """Launch K2 on CUDA ``logits``; same contract as the plain version.
-    ``config`` replaces K2_CONFIG (the launch tuned on the card)."""
+    """Launch K2 on CUDA ``logits``; same contract as the plain version."""
     if logits.device.type != "cuda":
         raise ValueError(f"entropy_argmax_triton needs a CUDA tensor, got {logits.device}")
     if logits.dim() != 4:
@@ -110,20 +113,16 @@ def entropy_argmax_triton(
         logits = logits.contiguous()
         sn, sc, sh, sw = (logits.stride(d) for d in order)
 
-    import triton
-
     from ._entropy_argmax_triton import entropy_argmax_kernel
 
-    config = K2_CONFIG if config is None else config
     dev = logits.device
-    k2 = plan(n, h * w, _sm_count(dev), config)
+    k2 = plan(n, h * w, _sm_count(dev))
     parts, counts = _scratch(dev, torch.cuda.current_stream(dev).cuda_stream, n, k2.programs)
     ent = torch.empty((n,), dtype=torch.float32, device=dev)
     arg = torch.empty((n, h, w), dtype=torch.int32, device=dev)
     entropy_argmax_kernel[(k2.programs, n)](
         logits, parts, counts, ent, arg, h * w, c, sn, sw, sc, k2.n_blocks, math.log(num_classes),
-        BLOCK_P=config.block_p, BLOCK_C=triton.next_power_of_2(c), R_BLOCK=k2.r_block,
-        num_warps=config.num_warps,
+        BLOCK_P=K2_CONFIG.block_p, R_BLOCK=k2.r_block, num_warps=K2_CONFIG.num_warps,
     )
     entropy_argmax_triton.launches += 1
     return ent, arg
