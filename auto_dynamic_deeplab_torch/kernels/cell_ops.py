@@ -54,7 +54,7 @@ EDGE_KINDS = {
 _KIND_CODE = {"skip": 0, "sep": 1, "dil": 2}
 
 SMEM_LIMIT = 232448  # 227 KB: the most shared memory one block may have on Hopper
-# The CUDA-core K5's tiles (PR 2), kept as the record of the widths it
+# The first, CUDA-core K5's tiles, kept as the record of the widths it
 # took: the coverage tests of K5 and K6 read them.
 STAGE_TILES = ((8, 16), (8, 8), (4, 8), (4, 4))
 # K5 (tensor cores): the input channels in chunks of STAGE_CHUNK bytes
