@@ -1,7 +1,8 @@
 """Eval driver (eval.py parity): static per-exit mIoU, or --dynamic
 early-exit inference with mIoU / latency / fps / exit rate / average
-confidence. Weights come from --seed (checkpoint loading is ROADMAP Queue 1
-item 9).
+confidence, in the single-program mode as the JAX CLI runs it (on the
+card, one CUDA graph a segment, replayed). Weights come from --seed
+(checkpoint loading is ROADMAP Queue 1 item 6).
 
     python -m auto_dynamic_deeplab_torch.cli.evaluate --dynamic \\
         --confidence entropy --threshold 0.5 --synthetic-crop 1025 2049 \\
@@ -14,7 +15,7 @@ import json
 
 import torch
 
-from ..data import make_data_loader, peek_batch
+from ..data import make_data_loader
 from ..models import ADD, EDM, BaselineModel
 from ..runtime import resolve_device
 from ..train.evaluator import Evaluation
@@ -38,8 +39,9 @@ def build_parser():
     return p
 
 
-def main(argv=None):
-    args = build_parser().parse_args(argv)
+def build(args):
+    """(Evaluation, val loader) of parsed ``args``: the model, its seeded
+    weights and, for a dynamic EDM run, the EDM, on ``args.device``."""
     device = resolve_device(args.device)
     path, C_index, low_level_layer, genotype = resolve_arch(args, args.genotype)
 
@@ -60,12 +62,16 @@ def main(argv=None):
         edm = EDM(model.feature_channels(model.exit_layers[0]))
         init_params(edm, torch.Generator().manual_seed(0))
 
-    evaluation = Evaluation(model, nclass, edm=edm, device=device)
+    return Evaluation(model, nclass, edm=edm, device=device), val_loader
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    evaluation, val_loader = build(args)
+    device = evaluation.device
     if args.dynamic:
-        sample = peek_batch(val_loader)["image"][:1]
         stats = evaluation.dynamic_inference(
             val_loader, threshold=args.threshold, confidence=args.confidence,
-            warmup_shape=sample.shape,
         )
     else:
         stats = evaluation.validate(val_loader)

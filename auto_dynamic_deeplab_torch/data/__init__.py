@@ -1,6 +1,6 @@
 """Loader factory (data/__init__.py::make_data_loader of the JAX package),
 synthetic data only in this slice: Cityscapes and Pascal wait for ROADMAP
-Queue 1 item 12."""
+Queue 1 item 8."""
 from __future__ import annotations
 
 from typing import Optional
@@ -22,7 +22,7 @@ def make_data_loader(
     """Returns (train, val, num_classes)."""
     if dataset != "synthetic":
         raise NotImplementedError(
-            f"dataset {dataset!r} is not ported yet (ROADMAP Queue 1 item 12); "
+            f"dataset {dataset!r} is not ported yet (ROADMAP Queue 1 item 8); "
             "use --dataset synthetic"
         )
     test_batch_size = test_batch_size or batch_size

@@ -25,7 +25,8 @@ acquire-release atomic); the program that takes the last ticket sums the
 partials in a fixed order (deterministic, no fp32 atomics), writes the
 image's entropy / (H·W) / log(num_classes) and resets the counter. The
 partials and counters are allocated once per (device, stream) and reused
-(``_scratch``): the kernel leaves the counters at 0. It takes
+(``_scratch``): the kernel leaves the counters at 0, so a CUDA graph
+replayed on the stream it was captured on needs no memset. It takes
 class-leading (N, C, H, W) and NHWC logits of any memory format whose
 pixels are evenly strided (both contiguous layouts and channels_last), at
 any N, in fp32 or bf16. Triton is imported only when the kernel launches.
@@ -81,6 +82,14 @@ def _scratch(device: torch.device, stream: int, n: int, programs: int) -> Tuple[
         counts = torch.zeros(max(n, 0 if counts is None else counts.numel()), dtype=torch.int32, device=device)
         _SCRATCH[(device, stream)] = parts, counts
     return parts, counts
+
+
+def scratch_buffers(device: torch.device, stream: int) -> Tuple[torch.Tensor, ...]:
+    """The (partials, counters) that K2 launches on ``stream`` use now, or
+    () before the first. A CUDA graph captured on ``stream`` bakes these
+    buffers in: its owner keeps them referenced, since a later call that
+    grows the scratch replaces them here."""
+    return _SCRATCH.get((device, stream), ())
 
 
 def entropy_argmax_reference(

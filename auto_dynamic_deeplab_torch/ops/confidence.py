@@ -4,6 +4,7 @@ scalar per decision."""
 from __future__ import annotations
 
 import math
+from typing import Union
 
 import torch
 
@@ -20,10 +21,11 @@ def normalized_shannon_entropy(
 
 
 def confidence_max(
-    logits: torch.Tensor, threshold: float, class_axis: int = -1
+    logits: torch.Tensor, threshold: Union[float, torch.Tensor], class_axis: int = -1
 ) -> torch.Tensor:
     """Fraction of pixels whose max softmax probability exceeds threshold.
-    High = confident."""
+    High = confident. ``threshold`` is a float or a 0-d fp32 tensor on the
+    logits' device (a CUDA graph's static input); either compares in fp32."""
     p = torch.softmax(logits.float(), dim=class_axis)
     max_map = p.amax(dim=class_axis)
     return (max_map > threshold).float().mean(dim=(1, 2))

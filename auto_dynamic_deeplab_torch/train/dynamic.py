@@ -12,25 +12,38 @@ Each decision reads back one scalar; stopping early means the later
 segments never run. For the entropy and max signals the decision also
 produces the exit's logits (the reference decodes the head before judging);
 the entropy signal is K2 (kernels/confidence.py) on CUDA logits. Logits are
-(N, C, H, W). PyTorch runs eagerly, so the segments are plain calls;
-``fused_program`` (a CUDA-graph analogue of the JAX single-program mode)
-and the bucketed ``infer_batch`` are later work (ROADMAP).
+(N, C, H, W). Three modes, as in the JAX package:
+
+  * ``infer``: batch 1, the segments run eagerly (JAX: one compiled
+    program a segment);
+  * ``infer_fused`` (``fused_program``): batch 1, the JAX single-program
+    mode. JAX compiles the whole image as one program whose exit decisions
+    are a ``lax.cond`` chain; PyTorch has no device-side ``cond`` a graph
+    can hold, so on CUDA each segment becomes one CUDA graph, captured once
+    per input shape and replayed, with the one scalar readback per
+    decision between graphs;
+  * ``infer_batch``: a batch whose continuing images are compacted into
+    padded buckets at every exit.
 """
 from __future__ import annotations
 
 import time
-from typing import Optional
+from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
-from ..kernels.confidence import entropy_argmax
+from ..kernels.confidence import entropy_argmax, scratch_buffers
 from ..ops.confidence import confidence_max
 from ..runtime import resolve_device
 
 
 class DynamicInferenceEngine:
     """Moves ``model`` (and ``edm``) to ``device`` (cuda unless the caller
-    asks for the CPU; raises without a GPU) and puts them in eval mode."""
+    asks for the CPU; raises without a GPU) and puts them in eval mode.
+
+    ``captures`` and ``replays`` count the CUDA graphs the engine captured
+    and replayed (``infer_fused`` on CUDA)."""
 
     def __init__(self, model, edm=None, num_classes: int = 19, device="cuda"):
         self.device = resolve_device(device)
@@ -38,11 +51,17 @@ class DynamicInferenceEngine:
         self.edm = None if edm is None else edm.to(self.device).eval()
         self.num_classes = num_classes
         self.exits = model.exit_layers
+        self._programs: Dict[tuple, FusedProgram] = {}
+        self._stream: Optional[torch.cuda.Stream] = None  # the graphs' one stream
+        self._pool = None  # the graphs' one memory pool
+        self.captures = 0
+        self.replays = 0
 
     # ------------------------------------------------------------ segments
 
-    def _confidence(self, state, exit_layer: int, size, confidence: str, threshold: float):
-        """(confidence (N,), logits or None) at an exit."""
+    def _confidence(self, state, exit_layer: int, size, confidence: str, threshold):
+        """(confidence (N,), logits or None) at an exit. ``threshold`` (read
+        by the max signal only) is a float or a 0-d fp32 tensor."""
         if confidence == "edm":
             feature = self.model.exit_feature(state, exit_layer)
             return self.edm(feature)[:, 0], None
@@ -51,7 +70,7 @@ class DynamicInferenceEngine:
             return entropy_argmax(logits, self.num_classes, class_axis=1)[0], logits
         return confidence_max(logits, threshold, class_axis=1), logits
 
-    def _decide(self, k: int, carry, size, confidence: str, threshold: float):
+    def _decide(self, k: int, carry, size, confidence: str, threshold):
         """Cells up to exit k (plus the stem when k == 0) and its confidence."""
         e = self.exits[k]
         start = 0 if k == 0 else self.exits[k - 1] + 1
@@ -79,6 +98,15 @@ class DynamicInferenceEngine:
             return conf < threshold  # low entropy → exit (ADD.py:478)
         return conf > threshold  # high max-prob coverage → exit (ADD.py:481)
 
+    def _run_segments(self, x, size, confidence: str, threshold):
+        """Every segment once, in order (each head too, for EDM)."""
+        carry = x
+        for k in range(len(self.exits) - 1):
+            carry, _, _ = self._decide(k, carry, size, confidence, threshold)
+            if confidence == "edm":
+                self._head(self.exits[k], carry, size)
+        self._final(carry, size)
+
     # -------------------------------------------------------------- driver
 
     @torch.inference_mode()
@@ -86,18 +114,15 @@ class DynamicInferenceEngine:
         """Run every segment once on zeros of ``input_shape`` (NHWC): builds
         the kernels and lets cuDNN pick its algorithms before timing."""
         x = torch.zeros(tuple(input_shape), dtype=torch.float32, device=self.device)
-        size = tuple(input_shape[1:3])
-        carry = x
-        for k in range(len(self.exits) - 1):
-            carry, _, _ = self._decide(k, carry, size, confidence, threshold)
-            if confidence == "edm":
-                self._head(self.exits[k], carry, size)
-        self._final(carry, size)
+        self._run_segments(x, tuple(input_shape[1:3]), confidence, threshold)
         self._sync()
 
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _input(self, x) -> torch.Tensor:
+        return torch.as_tensor(x).to(self.device, torch.float32)
 
     def infer(self, x, threshold: float = 0.0, confidence: str = "edm"):
         """One NHWC input (batch 1). Returns (logits (N, C, H, W),
@@ -111,7 +136,7 @@ class DynamicInferenceEngine:
     @torch.inference_mode()
     def _infer(self, x, threshold: float, confidence: str):
         """``infer`` with every decision's confidence, in order."""
-        x = torch.as_tensor(x).to(self.device, torch.float32)
+        x = self._input(x)
         size = tuple(x.shape[1:3])
         self._sync()
         t0 = time.perf_counter()
@@ -137,3 +162,230 @@ class DynamicInferenceEngine:
         self._sync()
         latency = time.perf_counter() - t0
         return logits, exit_index, latency, confs
+
+    # -------------------------------------------------------- batched mode
+
+    @torch.inference_mode()
+    def infer_batch(self, x, threshold: float = 0.0, confidence: str = "edm",
+                    bucket_sizes: Optional[List[int]] = None):
+        """Batched early exit (JAX ``infer_batch``): at each exit the images
+        that exit are finalized at that exit, and the continuing ones are
+        gathered into the smallest bucket that holds them, padded by
+        repeating the last kept image, before the later segments run.
+        Returns (logits (N, C, H, W) fp32 on the engine's device,
+        exit_index (N,) int64 on the CPU).
+
+        The segments run eagerly. Unlike the JAX loop, a decision reads
+        only the rows of real images, so the pad rows never count as
+        images from the third exit on."""
+        x = self._input(x)
+        n, size = x.shape[0], tuple(x.shape[1:3])
+        if bucket_sizes is None:
+            bucket_sizes = sorted({2 ** i for i in range(0, 16) if 2 ** i < n} | {n})
+        carry = x
+        alive = np.arange(n)
+        out: Optional[torch.Tensor] = None
+        exit_idx = np.full(n, len(self.exits) - 1, np.int64)
+
+        def finalize(logits: torch.Tensor, rows: np.ndarray, images: np.ndarray):
+            nonlocal out
+            if out is None:
+                out = torch.empty((n, *logits.shape[1:]), dtype=torch.float32, device=self.device)
+            src = torch.as_tensor(rows, device=self.device)
+            out.index_copy_(0, torch.as_tensor(images, device=self.device), logits.index_select(0, src).float())
+
+        for k in range(len(self.exits) - 1):
+            carry, conf, maybe_logits = self._decide(k, carry, size, confidence, threshold)
+            conf = conf[: len(alive)].float().cpu().numpy()  # one readback per decision
+            exits_now = self._exits_now(conf, confidence, threshold)
+            if exits_now.any():
+                head = self._head(self.exits[k], carry, size) if confidence == "edm" else maybe_logits
+                rows = np.nonzero(exits_now)[0]
+                finalize(head, rows, alive[rows])
+                exit_idx[alive[rows]] = k
+            keep = np.nonzero(~exits_now)[0]
+            if keep.size == 0:
+                return out, torch.from_numpy(exit_idx)
+            if keep.size < len(alive):
+                bucket = min(b for b in bucket_sizes if b >= keep.size)
+                pad = np.concatenate([keep, np.repeat(keep[-1], bucket - keep.size)])
+                carry = _gather(carry, torch.as_tensor(pad, device=self.device))
+                alive = alive[keep]
+
+        finalize(self._final(carry, size), np.arange(len(alive)), alive)
+        return out, torch.from_numpy(exit_idx)
+
+    # ---------------------------------------------- single-program mode
+
+    def fused_program(self, size, confidence: str = "edm") -> "FusedProgram":
+        """The single-program dynamic inference for images of ``size`` =
+        (H, W): fn(x, threshold) -> (logits, exit_index, confidence). Kept
+        by ``("fused", size, confidence)``, as JAX keys its program: the
+        threshold is a run-time value, so a new threshold captures
+        nothing."""
+        key = ("fused", tuple(size), confidence)
+        if key not in self._programs:
+            self._programs[key] = FusedProgram(self, tuple(size), confidence)
+        return self._programs[key]
+
+    def infer_fused(self, x, threshold: float = 0.0, confidence: str = "edm"):
+        """The single-program mode; same return contract as ``infer`` but
+        for the confidence: the first decision's, as the JAX fused program
+        carries it up (its ``descend``); nan with one exit."""
+        x = self._input(x)
+        program = self.fused_program(tuple(x.shape[1:3]), confidence)
+        self._sync()
+        t0 = time.perf_counter()
+        logits, exit_index, conf = program(x, threshold)
+        self._sync()
+        return logits, exit_index, time.perf_counter() - t0, conf
+
+    def _graph_stream(self) -> torch.cuda.Stream:
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._stream
+
+
+def _gather(state, idx: torch.Tensor):
+    """The backbone state's rows ``idx``, each tensor in its memory format."""
+    if isinstance(state, dict):
+        return {k: _gather(v, idx) for k, v in state.items()}
+    if isinstance(state, tuple):
+        return tuple(_gather(v, idx) for v in state)
+    if state is None:
+        return None
+    rows = state.index_select(0, idx)
+    if state.dim() == 4 and state.is_contiguous(memory_format=torch.channels_last):
+        return rows.contiguous(memory_format=torch.channels_last)
+    return rows
+
+
+class _GraphSet:
+    """The CUDA graphs of one input shape and the static tensors they read
+    and write: every static input and output stays referenced here, so no
+    graph's transient memory in the shared pool overlaps a buffer that
+    another graph reads, whatever order the decisions replay them in."""
+
+    def __init__(self, x: torch.Tensor, threshold: torch.Tensor):
+        self.x = x  # the image, copied in before every replay
+        self.threshold = threshold  # 0-d fp32, a static input of every graph
+        self.threshold_value = float("nan")  # what ``threshold`` holds
+        self.decide: List[Tuple[torch.cuda.CUDAGraph, tuple]] = []  # (graph, (state, conf, logits))
+        self.heads: List[Tuple[torch.cuda.CUDAGraph, torch.Tensor]] = []  # EDM only
+        self.final: Optional[Tuple[torch.cuda.CUDAGraph, torch.Tensor]] = None
+        self.scratch: tuple = ()  # K2's buffers that the graphs write
+
+
+class FusedProgram:
+    """``DynamicInferenceEngine.fused_program``: fn(x, threshold) ->
+    (logits (1, C, H, W), exit_index, first decision's confidence) for one
+    NHWC image.
+
+    On CUDA, the first call for an input shape runs every segment once,
+    eagerly, on the engine's graph stream (this builds the kernels, fills
+    the packed-weight caches, K2's Triton JIT and its per-stream scratch,
+    and cuDNN's choices, none of which may happen inside a capture), then
+    captures one CUDA graph for each segment (decide_k for every exit but
+    the last, head_k for EDM, final) into the engine's one memory pool.
+    Every call replays them on that one stream: the stream the graphs were
+    captured on, whose K2 scratch they bake in, so no eager K2 launch on
+    those buffers can run between or beside them. The threshold is a 0-d
+    fp32 device tensor that the graphs read (only the max signal uses it),
+    filled when it changes: a new threshold captures nothing. A failed
+    capture or replay raises; there is no eager fallback. The logits are
+    cloned out of the graph's static output, so the next replay does not
+    overwrite them.
+
+    On the CPU (tests) the same segments run eagerly. Either way the exit
+    decision compares in fp32, as the JAX program does."""
+
+    def __init__(self, engine: DynamicInferenceEngine, size, confidence: str):
+        self.engine, self.size, self.confidence = engine, size, confidence
+        self._sets: Dict[tuple, _GraphSet] = {}
+
+    @torch.inference_mode()
+    def __call__(self, x: torch.Tensor, threshold: float):
+        eng = self.engine
+        x = eng._input(x)
+        if x.shape[0] != 1 or tuple(x.shape[1:3]) != self.size:
+            raise ValueError(f"the fused program takes one {self.size} image, got {tuple(x.shape)}")
+        thr = float(np.float32(threshold))
+        if eng.device.type == "cpu":
+            return self._eager(x, thr)
+        return self._replay(x, thr)
+
+    def _eager(self, x: torch.Tensor, thr: float):
+        eng, conf_kind = self.engine, self.confidence
+        carry, first = x, float("nan")
+        for k in range(len(eng.exits) - 1):
+            carry, conf, maybe_logits = eng._decide(k, carry, self.size, conf_kind, thr)
+            value = float(conf[0])
+            first = value if k == 0 else first
+            if eng._exits_now(value, conf_kind, thr):
+                logits = eng._head(eng.exits[k], carry, self.size) if conf_kind == "edm" else maybe_logits
+                return logits, k, first
+        return eng._final(carry, self.size), len(eng.exits) - 1, first
+
+    def _replay(self, x: torch.Tensor, thr: float):
+        eng = self.engine
+        gs = self._sets.get(tuple(x.shape))
+        if gs is None:
+            gs = self._sets[tuple(x.shape)] = self._capture(tuple(x.shape))
+        stream = eng._graph_stream()
+        caller = torch.cuda.current_stream(eng.device)
+        gs.x.copy_(x)
+        if gs.threshold_value != thr:
+            gs.threshold.fill_(thr)
+            gs.threshold_value = thr
+        stream.wait_stream(caller)
+        first = float("nan")
+        with torch.cuda.stream(stream):
+            for k, (graph, (_, conf, logits)) in enumerate(gs.decide):
+                graph.replay()
+                eng.replays += 1
+                value = float(conf[0])  # the one scalar readback per decision
+                first = value if k == 0 else first
+                if eng._exits_now(value, self.confidence, thr):
+                    exit_index = k
+                    if self.confidence == "edm":
+                        gs.heads[k][0].replay()
+                        eng.replays += 1
+                        logits = gs.heads[k][1]
+                    break
+            else:
+                exit_index = len(eng.exits) - 1
+                gs.final[0].replay()
+                eng.replays += 1
+                logits = gs.final[1]
+        caller.wait_stream(stream)
+        # the next replay waits for this clone (stream.wait_stream above)
+        return logits.clone(), exit_index, first
+
+    def _capture(self, shape) -> _GraphSet:
+        eng, size, conf_kind = self.engine, self.size, self.confidence
+        stream = eng._graph_stream()
+        gs = _GraphSet(torch.zeros(shape, dtype=torch.float32, device=eng.device),
+                       torch.zeros((), dtype=torch.float32, device=eng.device))
+        stream.wait_stream(torch.cuda.current_stream(eng.device))
+        with torch.cuda.stream(stream):
+            eng._run_segments(gs.x, size, conf_kind, gs.threshold)
+        stream.synchronize()
+
+        def capture(fn):
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=eng._pool, stream=stream):
+                out = fn()
+            eng.captures += 1
+            return graph, out
+
+        carry = gs.x
+        for k in range(len(eng.exits) - 1):
+            gs.decide.append(capture(lambda: eng._decide(k, carry, size, conf_kind, gs.threshold)))
+            carry = gs.decide[-1][1][0]
+            if conf_kind == "edm":
+                gs.heads.append(capture(lambda: eng._head(eng.exits[k], carry, size)))
+        gs.final = capture(lambda: eng._final(carry, size))
+        gs.scratch = scratch_buffers(eng.device, stream.cuda_stream)
+        return gs
+

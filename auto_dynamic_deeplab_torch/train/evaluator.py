@@ -4,14 +4,15 @@ reference's eval.py Evaluation, :29-230).
 Static mode: per-exit mIoU over the val set, with the per-exit entropy and
 argmax from K2 on CUDA logits. Dynamic mode: per-image early-exit inference
 reporting mIoU, mean latency, fps, early-exit rate and average confidence.
-PyTorch has no device-side ``cond``, so dynamic mode runs the engine's
-segment loop (the JAX package's ``fused=False`` path); the exit decisions
-and mIoU are the same as the fused program's by construction. The average
-confidence follows the JAX ``dynamic_inference`` at its default
-(``fused=True``): each image counts its first decision's confidence, which
-is what the fused program returns (its ``descend`` carries the current
-stage's value up), while ``DynamicInferenceEngine.infer`` returns the last
-decision's, as JAX ``infer`` does. The two differ from three exits on.
+As in the JAX package it runs the single-program mode by default
+(``fused=True``: ``engine.infer_fused``, one CUDA graph a segment on the
+card), timing the first image twice and keeping the second; ``fused=False``
+runs the engine's eager segment loop after a warm-up. The exit decisions
+and mIoU of the two are the same. The average confidence is each image's
+first decision's, which is what the fused program returns (its
+``descend`` carries the current stage's value up), in both modes;
+``DynamicInferenceEngine.infer`` returns the last decision's, as JAX
+``infer`` does. The two differ from three exits on.
 """
 from __future__ import annotations
 
@@ -73,13 +74,8 @@ class Evaluation:
         threshold: float = 0.0,
         confidence: str = "edm",
         warmup_shape=None,
-        fused: bool = False,
+        fused: bool = True,
     ) -> Dict:
-        if fused:
-            raise NotImplementedError(
-                "the single-program (fused) dynamic inference needs CUDA graphs "
-                "per segment: ROADMAP Queue 1 item 3 (fused_program)"
-            )
         evaluator = Evaluator(self.num_classes, self.device)
         latency = AverageMeter()
         conf_meter = AverageMeter()
@@ -87,9 +83,15 @@ class Evaluation:
         early_exits = 0
         exit_histogram = [0] * len(self.model.exit_layers)
 
-        if warmup_shape is not None:
+        def segment_loop(x, threshold, confidence):
+            logits, exit_idx, dt, confs = self.engine._infer(x, threshold, confidence)
+            return logits, exit_idx, dt, confs[0] if confs else float("nan")
+
+        infer = self.engine.infer_fused if fused else segment_loop
+        if warmup_shape is not None and not fused:
             self.engine.warmup(warmup_shape, confidence, threshold)
-        warmed = warmup_shape is not None
+        warmed = fused or warmup_shape is not None
+        first = fused
         for batch in loader:
             images, labels = batch["image"], batch["label"]
             for i in range(images.shape[0]):
@@ -97,8 +99,10 @@ class Evaluation:
                 if not warmed:
                     self.engine.warmup(x.shape, confidence, threshold)
                     warmed = True
-                logits, exit_idx, dt, confs = self.engine._infer(x, threshold, confidence)
-                conf = confs[0] if confs else float("nan")  # the fused program's value
+                logits, exit_idx, dt, conf = infer(x, threshold, confidence)
+                if first:  # the first fused call captures its graphs: time it again
+                    logits, exit_idx, dt, conf = infer(x, threshold, confidence)
+                    first = False
                 pred = logits.argmax(dim=1)[0]  # (N, C, H, W) logits
                 evaluator.add_batch(torch.as_tensor(labels[i]).to(self.device), pred)
                 latency.update(dt)

@@ -31,13 +31,33 @@ Phases, each printing JSON lines and raising on failure:
   6. the main paths through their entry point, cli.evaluate.main, on
      1025x2049 synthetic images: static, --dynamic entropy at thresholds 0
      and 1.01, --dynamic edm, each with --cell-exec xla and flat, then a
-     mixed genotype (pools, skip, none) with flat; every kernel's launch
-     count is set to 0 just before each run and read just after: K1 once
-     an image (and once for a dynamic run's warm-up), the flat runs' K3-K6
-     counts what the routes predict;
-  7. the flagship bf16 engine as bench.py builds it, xla and flat: p50
-     early-exit and full-depth latency at 1025x2049, batch 1;
-  8. the kernels summary line.
+     mixed genotype (pools, skip, none) with flat. --dynamic runs the
+     single-program mode (one CUDA graph a segment, replayed), as the JAX
+     CLI does: a replay calls no wrapper, so torch.profiler counts the
+     kernels by name (K1 once an image and once for the warm-up, K2 once
+     a decision, the flat runs' K3-K6 what the routes predict); the
+     wrappers' counts show the warm-up and the capture. One segment-loop
+     run (fused=False) for each --cell-exec keeps the wrapper counts: every
+     kernel's count is set to 0 just before each run and read just after;
+  7. the flagship engine (C=2, F=20, B=5, 19 classes, 1025x2049, batch 1,
+     with an EDM), fp32 and bf16, xla and flat: the fused graphs against
+     the segment loop (same exit and bitwise-equal logits for entropy at
+     thresholds 0 and 1.01, max and edm; a new threshold captures
+     nothing), then the p50 of 20 images after 3 warm-up ones in each mode,
+     run segment loop, fused, fused, segment loop, early exit and full
+     depth, with host launches and readbacks per image, the device busy
+     share and peak memory; the segment loop's cell launches per image
+     against the routes; the fused graphs' kernels by the profiler, in a
+     process of its own (a fresh engine's warm-up, capture and two
+     replays);
+  8. the trained weights (artifacts/product_proof, flagship topology, F=8,
+     7 classes) read with the port's flax-msgpack reader, on the 32
+     beacon validation images at 321x321, fp32 and bf16: static per-exit
+     mIoU and the EDM-gated fused run at meta.json's threshold against
+     the JAX-CPU recording (tests/torch_product_proof_ref.json), then
+     infer_batch on 8 of the images (both exits) against per-image
+     infer_fused;
+  9. the kernels summary line.
 The last lines are the kernels summary, the card's name and power limit
 from nvidia-smi, and {"ok": true, "device": {...}}. Without a GPU, or
 without the port beside it, the script exits non-zero and prints no
@@ -46,6 +66,7 @@ result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import statistics
 import subprocess
@@ -597,8 +618,43 @@ def phase_model(ctx):
               "exits": rows, "cell_launches": launches})
 
 
+def _device_kernel_counts(fn, runs_ok, tries: int = 5):
+    """(result of ``fn``, the port's device kernels it launched by name) by
+    torch.profiler. A session now and then records fewer kernels than were
+    launched (see ``device_ms``), so a session whose counts ``runs_ok``
+    rejects as too few is run again, up to ``tries`` sessions; the last
+    counts are returned either way and the caller checks them. Each
+    session starts with one small kernel of its own, which is not counted:
+    the first kernel a session sees is the one most often lost."""
+    from auto_dynamic_deeplab_torch.kernels import count_device_kernels
+
+    for _ in range(tries):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            torch.ones(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
+            out = fn()
+            torch.cuda.synchronize()
+        counts = count_device_kernels(
+            e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+        if runs_ok(counts):
+            break
+        print(f"a profiler session recorded too few kernels: {counts}; run again", file=sys.stderr, flush=True)
+    return out, counts
+
+
+def _as_device(wrapper_counts) -> dict:
+    """Wrapper launches as device kernel counts (K3 and K4 launch one kernel)."""
+    from auto_dynamic_deeplab_torch.kernels import DEVICE_KERNELS
+
+    out = Counter()
+    for name, v in wrapper_counts.items():
+        out[DEVICE_KERNELS[name]] += v
+    return {k: out.get(k, 0) for k in sorted(set(DEVICE_KERNELS.values()))}
+
+
 def _check_run(name, cell_exec, stats, counts, n_img, genotype):
-    """The launches of one cli.evaluate run against what it must show."""
+    """The wrapper launches of one static or segment-loop run against what
+    it must show."""
     k1, k2 = counts["fused_stems"], counts["entropy_argmax_triton"]
     want_k1 = n_img if name == "static" else n_img + 1  # a dynamic run's warm-up runs the stems once
     if k1 != want_k1:
@@ -610,13 +666,9 @@ def _check_run(name, cell_exec, stats, counts, n_img, genotype):
         if not all(0.0 <= m <= 1.0 for m in stats["miou"]):
             raise AssertionError(f"static mIoU out of range: {stats['miou']}")
     else:
-        if not (0.0 <= stats["miou"] <= 1.0 and stats["mean_latency_s"] > 0):
-            raise AssertionError(f"{name} {cell_exec}: bad stats {stats}")
+        _check_dynamic_stats(name, cell_exec, stats, n_img)
         if name.startswith("dynamic_entropy") and k2 < n_img:
             raise AssertionError(f"{name} {cell_exec}: K2 launched {k2} times for {n_img} images")
-        want = {"dynamic_entropy_thr0": [0, n_img], "dynamic_entropy_thr1.01": [n_img, 0]}
-        if name in want and stats["exit_histogram"] != want[name]:
-            raise AssertionError(f"{name} {cell_exec}: exit histogram {stats['exit_histogram']}")
     cells = {k: counts[k] for k in CELL_KERNELS}
     if cell_exec == "xla":
         if any(cells.values()):
@@ -637,6 +689,42 @@ def _check_run(name, cell_exec, stats, counts, n_img, genotype):
         raise AssertionError(f"{name} flat: cell kernel launches {cells}, the routes predict {want}")
 
 
+def _check_dynamic_stats(name, cell_exec, stats, n_img):
+    if not (0.0 <= stats["miou"] <= 1.0 and stats["mean_latency_s"] > 0 and stats["n_images"] == n_img):
+        raise AssertionError(f"{name} {cell_exec}: bad stats {stats}")
+    want = {"dynamic_entropy_thr0": [0, n_img], "dynamic_entropy_thr1.01": [n_img, 0]}
+    if name in want and stats["exit_histogram"] != want[name]:
+        raise AssertionError(f"{name} {cell_exec}: exit histogram {stats['exit_histogram']}")
+
+
+def _fused_wants(name, cell_exec, stats, genotype):
+    """(wrapper counts, the device kernel counts that may be right) of one
+    fused dynamic run. The warm-up runs every segment once eagerly and the
+    capture calls every wrapper once more, launching nothing; the device
+    sees the warm-up and every replay: each image's segments, the first
+    image's twice (its first, capture-inclusive timing is discarded). The
+    first image's exit is the histogram's only one, or else either."""
+    conf = "edm" if name == "dynamic_edm" else "entropy"
+    hist, n_img = stats["exit_histogram"], stats["n_images"]
+    cells = CELL_KERNELS if cell_exec == "flat" else ()
+    early, full = (expected_cell_launches(genotype, torch.float32, range(c)) for c in (6, 12))
+    segments = Counter({"fused_stems": 1, "entropy_argmax_triton": int(conf == "entropy")})
+    segments.update({k: v for k, v in full.items() if k in cells})
+    wrappers = Counter({k: 2 * v for k, v in segments.items()})
+    wrappers = {k: wrappers.get(k, 0) for k in ("fused_stems", "entropy_argmax_triton", *CELL_KERNELS)}
+    per_exit = [Counter({"fused_stems": 1, "entropy_argmax_triton": int(conf == "entropy")}) for _ in hist]
+    for c, per in zip((early, full), per_exit):
+        per.update({k: v for k, v in c.items() if k in cells})
+    devices = []
+    for first in [k for k, h in enumerate(hist) if h]:
+        dev = Counter(segments)
+        for k, h in enumerate(hist):
+            for _ in range(h + int(k == first)):
+                dev.update(per_exit[k])
+        devices.append(_as_device(dev))
+    return wrappers, devices
+
+
 def phase_main_path(ctx):
     from auto_dynamic_deeplab_torch.cli import evaluate
 
@@ -651,24 +739,63 @@ def phase_main_path(ctx):
     ]
     total = Counter()
 
-    def drive(argv):
+    def drive(fn):
         for f in kernels.values():
             f.launches = 0
-        stats = evaluate.main(argv)
+        stats = fn()
         return stats, {name: f.launches for name, f in kernels.items()}
 
+    genotype = _flagship_genotype()
     for cell_exec in ("xla", "flat"):
         for name, extra in runs:
-            stats, counts = drive(base + ["--cell-exec", cell_exec] + extra)
-            n_img = stats.get("n_images", 8)  # static: the 8-image val set
-            _check_run(name, cell_exec, stats, counts, n_img, _flagship_genotype())
-            emit({"phase": "main_path", "cell_exec": cell_exec, "run": name, "stats": stats,
-                  "launches": counts})
+            argv = base + ["--cell-exec", cell_exec] + extra
+            if name == "static":
+                stats, counts = drive(lambda: evaluate.main(argv))
+                _check_run(name, cell_exec, stats, counts, 8, genotype)  # the 8-image val set
+                emit({"phase": "main_path", "cell_exec": cell_exec, "run": name, "stats": stats,
+                      "launches": counts})
+                total.update(counts)
+                continue
+            # the fused (graph) run; the device counts the replays' kernels
+            seen = {}
+
+            def enough(device):
+                _, wants = _fused_wants(name, cell_exec, seen["stats"], genotype)
+                return any(all(device[k] >= w[k] for k in w) for w in wants)
+
+            def run():
+                stats, counts = drive(lambda: evaluate.main(argv))
+                seen.update(stats=stats, counts=counts)
+                return stats
+
+            stats, device = _device_kernel_counts(run, enough)
+            counts = seen["counts"]
+            _check_dynamic_stats(name, cell_exec, stats, 8)
+            wrappers, wants = _fused_wants(name, cell_exec, stats, genotype)
+            if counts != wrappers:
+                raise AssertionError(f"{name} {cell_exec} fused: wrapper calls {counts}, the warm-up and "
+                                     f"the capture predict {wrappers}")
+            if device not in wants:
+                raise AssertionError(f"{name} {cell_exec} fused: device kernels {device}, the routes "
+                                     f"predict one of {wants}")
+            emit({"phase": "main_path", "cell_exec": cell_exec, "run": name, "mode": "fused",
+                  "stats": stats, "launches": counts, "device_kernels": device})
             total.update(counts)
+        # the segment loop (fused=False) through the CLI's own build
+        name = "dynamic_entropy_thr0"
+        args = evaluate.build_parser().parse_args(base + ["--cell-exec", cell_exec] + runs[1][1])
+        evaluation, loader = evaluate.build(args)
+        stats, counts = drive(lambda: evaluation.dynamic_inference(
+            loader, threshold=0.0, confidence="entropy", warmup_shape=(1, *FULL_HW, 3), fused=False))
+        _check_run(name, cell_exec, stats, counts, stats["n_images"], genotype)
+        emit({"phase": "main_path", "cell_exec": cell_exec, "run": name, "mode": "segment_loop",
+              "stats": stats, "launches": counts})
+        total.update(counts)
+        del evaluation
     with tempfile.TemporaryDirectory() as tmp:
         geno = Path(tmp) / "mixed_genotype.npy"
         np.save(geno, np.array(MIXED_GENOTYPE, dtype=np.int64))
-        stats, counts = drive(base + ["--cell-exec", "flat", "--genotype", str(geno)])
+        stats, counts = drive(lambda: evaluate.main(base + ["--cell-exec", "flat", "--genotype", str(geno)]))
     _check_run("static", "flat", stats, counts, 8, MIXED_GENOTYPE)
     for name in ("sep_fused", "dense_stage"):
         if counts[name] == 0:
@@ -682,45 +809,282 @@ def phase_main_path(ctx):
     ctx["launches"] = dict(total)
 
 
-def phase_bench(ctx):
+def _flagship_edm(model, dtype=None, seed=0):
+    from auto_dynamic_deeplab_torch.models import EDM
+    from auto_dynamic_deeplab_torch.utils.initialize import init_params
+
+    return init_params(EDM(model.feature_channels(model.exit_layers[0]), dtype=dtype),
+                       torch.Generator().manual_seed(seed))
+
+
+def _window(engine, fn, xs, thr):
+    """Host launches, readbacks, device ms, busy share and peak memory
+    over a profiled run of ``fn`` on the images ``xs``. The busy share is
+    the ms of device kernels over the window's wall ms (the kernels of one
+    stream do not overlap); the profiler's own host work is in that wall
+    time, so the phase also gives the device ms over the unprofiled p50."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    replays = engine.replays
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for x in xs:
+            fn(x, thr, "entropy")
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    device = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    n = len(xs)
+    out = {"device_kernels_per_image": len(kernels) / n, "device_ms_per_image": device / n,
+           "device_busy_share_profiled": device / wall_ms, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "readbacks_per_image": len(engine.exits) - 1 if thr == 0.0 else 1}
+    if engine.replays > replays:  # the fused graphs: a replay each, the image's copy in and the clone out
+        out["graph_replays_per_image"] = (engine.replays - replays) / n
+        out["host_launches_per_image"] = out["graph_replays_per_image"] + 2
+    else:
+        out["host_launches_per_image"] = out["device_kernels_per_image"]
+    return out
+
+
+def _segments(dtype, cell_exec, cells):
+    """Wrapper launches of one entropy decide_0 (cells 0-5) or of every
+    segment (12 cells)."""
+    c = Counter({"fused_stems": 1, "entropy_argmax_triton": 1})
+    if cell_exec == "flat":
+        c.update(expected_cell_launches(_flagship_genotype(), dtype, range(cells)))
+    return c
+
+
+def _graph_kernels():
+    """Prints, as one JSON line, the port's device kernels that torch.profiler
+    records over a fresh engine's warm-up (every segment once), capture
+    (nothing runs) and two replays (an early exit, then full depth), for
+    each dtype and cell execution of phase 7. Run in a process of its own:
+    in the process that has run phases 2-6, sessions on the card lost the
+    first kernel of a replayed graph (K1) in some calls, though the
+    replay's logits were bitwise those of the segment loop; in a fresh
+    process no session did."""
+    from auto_dynamic_deeplab_torch.runtime import resolve_device
+    from auto_dynamic_deeplab_torch.train.dynamic import DynamicInferenceEngine
+
+    dev = resolve_device("cuda")
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for cell_exec in ("xla", "flat"):
+            model = _flagship(dtype, flat_eval=cell_exec == "flat").to(dev)
+            x = torch.randn((1, *FULL_HW, 3), generator=torch.Generator(device=dev).manual_seed(3), device=dev)
+            DynamicInferenceEngine(model, num_classes=19).warmup(x.shape, "entropy", 0.0)  # builds the kernels
+            want = _as_device(_segments(dtype, cell_exec, 12) + _segments(dtype, cell_exec, 6)
+                              + _segments(dtype, cell_exec, 12))
+
+            def capture_and_replay():
+                fresh = DynamicInferenceEngine(model, num_classes=19)  # noqa: B023
+                fresh.infer_fused(x, 1.01, "entropy")  # noqa: B023
+                fresh.infer_fused(x, 0.0, "entropy")  # noqa: B023
+
+            _, counts = _device_kernel_counts(capture_and_replay,
+                                              lambda c: all(c[k] >= v for k, v in want.items()))  # noqa: B023
+            out[f"{str(dtype).split('.')[-1]} {cell_exec}"] = counts
+            del model
+    print(json.dumps(out), flush=True)
+
+
+def phase_engine(ctx):
+    if "smi" not in ctx:
+        ctx["smi"] = nvidia_smi_line()
+    res = subprocess.run([sys.executable, "-c", "import chip_smoke; chip_smoke._graph_kernels()"],
+                         cwd=Path(__file__).resolve().parent, capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        raise RuntimeError(f"the graph kernel count failed:\n{res.stderr[-4000:]}")
+    ctx["graph_kernels"] = json.loads(res.stdout.strip().splitlines()[-1])
+    sys.stderr.write("".join(ln + "\n" for ln in res.stderr.splitlines() if "too few" in ln))
+    for dtype in (torch.float32, torch.bfloat16):
+        for cell_exec in ("xla", "flat"):
+            _engine_modes(ctx, dtype, cell_exec)
+            gc.collect()  # the engine's graphs and their pool go with it
+            torch.cuda.empty_cache()
+
+
+def _engine_modes(ctx, dtype, cell_exec):
+    """Phase 7 for one dtype and cell execution."""
     from auto_dynamic_deeplab_torch.runtime import resolve_device
     from auto_dynamic_deeplab_torch.train.dynamic import DynamicInferenceEngine
 
     dev = resolve_device("cuda")
     shape = (1, *FULL_HW, 3)
-    fns = _cell_fns()
-    for cell_exec in ("xla", "flat"):
-        model = _flagship(torch.bfloat16, flat_eval=cell_exec == "flat").to(dev)
-        engine = DynamicInferenceEngine(model, num_classes=19)
-        engine.warmup(shape, "entropy", 0.0)
-        g = torch.Generator(device=dev).manual_seed(3)
-        out = {}
-        for name, thr, want_exit in (("early_exit", 1.01, 0), ("full_depth", 0.0, 1)):
-            lat = []
-            for f in fns.values():
+    fns, kernels = _cell_fns(), _all_kernels()
+    dname = str(dtype).split(".")[-1]
+    model = _flagship(dtype, flat_eval=cell_exec == "flat").to(dev)
+    engine = DynamicInferenceEngine(model, edm=_flagship_edm(model, dtype), num_classes=19)
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(shape, generator=g, device=dev)
+    engine.warmup(shape, "entropy", 0.0)
+    # the segment loop's window before any graph holds memory
+    xs = [torch.randn(shape, generator=g, device=dev) for _ in range(3)]
+    windows = {}
+    for thr in (1.01, 0.0):
+        windows[("segment_loop", thr)] = _window(engine, engine.infer, xs, thr)
+    # fused against the segment loop, bitwise; a new threshold captures nothing
+    checks = []
+    for conf, thrs in (("entropy", (0.0, 1.01)), ("max", (0.05, 0.999)), ("edm", (-1e9, 1e9))):
+        before = engine.captures
+        for i, thr in enumerate(thrs):
+            want, k_want, _, c_want = engine.infer(x, thr, conf)
+            got, k_got, _, c_got = engine.infer_fused(x, thr, conf)
+            torch.cuda.synchronize()
+            equal = torch.equal(got, want)
+            if not (k_got == k_want and c_got == c_want and equal):
+                diff = (got.float() - want.float()).abs().max().item()
+                raise AssertionError(f"{dname} {cell_exec} {conf} thr={thr}: fused exit {k_got} conf "
+                                     f"{c_got}, segment loop exit {k_want} conf {c_want}, "
+                                     f"logits max |diff| {diff}")
+            if i == 0:
+                captured = engine.captures - before
+            elif engine.captures != before + captured:
+                raise AssertionError(f"{dname} {cell_exec} {conf}: threshold {thr} captured "
+                                     f"{engine.captures - before - captured} more graphs")
+            checks.append({"confidence": conf, "threshold": thr, "exit": k_got,
+                           "confidence_value": c_got, "bitwise_equal": equal})
+        want_graphs = 3 if conf == "edm" else 2
+        if captured != want_graphs:
+            raise AssertionError(f"{dname} {cell_exec} {conf}: {captured} graphs, want {want_graphs}")
+    for thr in (1.01, 0.0):
+        windows[("fused", thr)] = _window(engine, engine.infer_fused, xs, thr)
+    # the replays' kernels, by the profiler, in a fresh process (see
+    # ``_graph_kernels``), against the routes
+    want = _as_device(_segments(dtype, cell_exec, 12) + _segments(dtype, cell_exec, 6)
+                      + _segments(dtype, cell_exec, 12))
+    graph_kernels = ctx["graph_kernels"][f"{dname} {cell_exec}"]
+    if graph_kernels != want:
+        raise AssertionError(f"{dname} {cell_exec} fused: warm-up, capture and two replays launched "
+                             f"{graph_kernels}, the routes predict {want}")
+    # p50s: segment loop, fused, fused, segment loop
+    latency = {}
+    for name, thr, want_exit in (("early_exit", 1.01, 0), ("full_depth", 0.0, 1)):
+        lat = {"segment_loop": [], "fused": []}
+        blocks = {"segment_loop": [], "fused": []}
+        per_image = None
+        for mode in ("segment_loop", "fused", "fused", "segment_loop"):
+            fn = engine.infer if mode == "segment_loop" else engine.infer_fused
+            for f in kernels.values():
                 f.launches = 0
+            block = []
             for _ in range(3 + 20):
-                x = torch.randn(shape, generator=g, device=dev)
-                logits, k, dt, _ = engine.infer(x, threshold=thr, confidence="entropy")
+                xi = torch.randn(shape, generator=g, device=dev)
+                logits, k, dt, _ = fn(xi, thr, "entropy")
                 if k != want_exit or not torch.isfinite(logits).all():
-                    raise AssertionError(f"{cell_exec} {name}: exit {k}, "
+                    raise AssertionError(f"{dname} {cell_exec} {mode} {name}: exit {k}, "
                                          f"finite={bool(torch.isfinite(logits).all())}")
-                lat.append(dt * 1e3)
-            per_image = {n: f.launches / 23 for n, f in fns.items()}
-            cells = range(6 if want_exit == 0 else 12)
-            want = expected_cell_launches(_flagship_genotype(), torch.bfloat16, cells)
-            if cell_exec == "flat" and per_image != {n: float(want.get(n, 0)) for n in fns}:
-                raise AssertionError(f"flat {name}: cell launches per image {per_image}, "
-                                     f"routes predict {dict(want)}")
-            lat = lat[3:]
-            out[name] = {"p50_ms": statistics.median(lat), "mean_ms": statistics.fmean(lat),
-                         "min_ms": min(lat), "max_ms": max(lat), "n": len(lat),
-                         "cell_launches_per_image": per_image}
-        torch.cuda.synchronize()
-        emit({"phase": "bench_bf16_engine", "cell_exec": cell_exec, "hw": list(FULL_HW), "batch": 1,
-              "confidence": "entropy", "latency": out,
-              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "nvidia_smi": ctx["smi"]})
-        del engine, model
+                block.append(dt * 1e3)
+            lat[mode] += block[3:]
+            blocks[mode].append(statistics.median(block[3:]))
+            if mode == "segment_loop":
+                per_image = {n: f.launches / 23 for n, f in fns.items()}
+                want = expected_cell_launches(_flagship_genotype(), dtype, range(6 if want_exit == 0 else 12))
+                if cell_exec == "flat" and per_image != {n: float(want.get(n, 0)) for n in fns}:
+                    raise AssertionError(f"flat {dname} {name}: cell launches per image {per_image}, "
+                                         f"routes predict {dict(want)}")
+            elif any(f.launches for f in kernels.values()):
+                raise AssertionError(f"{dname} {cell_exec} fused {name}: a replay called a wrapper")
+        latency[name] = {
+            mode: {"p50_ms": statistics.median(v), "block_p50_ms": blocks[mode], "mean_ms": statistics.fmean(v),
+                   "min_ms": min(v), "max_ms": max(v), "n": len(v), **windows[(mode, thr)]}
+            for mode, v in lat.items()
+        }
+        for v in latency[name].values():
+            v["device_busy_share_at_p50"] = v["device_ms_per_image"] / v["p50_ms"]
+        latency[name]["segment_loop"]["cell_launches_per_image"] = per_image
+    emit({"phase": "engine_modes", "dtype": dname, "cell_exec": cell_exec, "hw": list(FULL_HW),
+          "batch": 1, "confidence": "entropy", "checks": checks, "captures": engine.captures,
+          "warmup_capture_two_replays_kernels": graph_kernels,
+          "latency": latency, "order": "segment_loop, fused, fused, segment_loop",
+          "nvidia_smi": ctx["smi"]})
+
+
+def phase_trained(ctx):
+    from auto_dynamic_deeplab_torch.bridge import load_jax_variables
+    from auto_dynamic_deeplab_torch.data import DataLoader
+    from auto_dynamic_deeplab_torch.data.beacon import BeaconSegmentation, gen_item
+    from auto_dynamic_deeplab_torch.models import ADD, EDM
+    from auto_dynamic_deeplab_torch.nas import AUTODEEPLAB_GENOTYPE, NETWORK_ARCH
+    from auto_dynamic_deeplab_torch.train.evaluator import Evaluation
+    from auto_dynamic_deeplab_torch.utils.restore import load_product_proof
+
+    root = Path(__file__).resolve().parent
+    backbone, edm_vars, meta = load_product_proof(root / "artifacts" / "product_proof")
+    ref = json.loads((root / "tests" / "torch_product_proof_ref.json").read_text())
+    m, hw, thr = meta["model"], tuple(meta["hw"]), meta["threshold_median"]
+    cfg = NETWORK_ARCH[m["network_arch"]]
+    ncls, seeds = m["num_classes"], meta["val_seeds"]
+    if not (ref["val_seeds"] == seeds and ref["threshold"] == thr and tuple(ref["hw"]) == hw):
+        raise AssertionError("the recorded oracle is not of meta.json's images and threshold")
+    if "smi" not in ctx:
+        ctx["smi"] = nvidia_smi_line()
+    items = [gen_item(s, hw) for s in seeds]
+    far = [abs(c - thr) > 1e-3 for c in ref["exit0_edm_confidence"]]
+    exits_ref = [0 if c <= thr else 1 for c in ref["exit0_edm_confidence"]]
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        model = ADD(cfg["path"], cfg["C_index"], AUTODEEPLAB_GENOTYPE, ncls, F=m["F"], B=m["B"],
+                    low_level_layer=cfg["low_level_layer"], dtype=dtype)
+        load_jax_variables(model, backbone)  # raises on a missing or unused key
+        edm = load_jax_variables(EDM(model.feature_channels(model.exit_layers[0]), dtype=dtype), edm_vars)
+        evaluation = Evaluation(model, ncls, edm=edm)
+
+        def loader():
+            return DataLoader(BeaconSegmentation(seeds, hw), 1, shuffle=False, drop_last=False, num_workers=4)
+
+        static = evaluation.validate(loader())
+        gated = evaluation.dynamic_inference(loader(), threshold=thr, confidence="edm")
+        engine = evaluation.engine
+        per_image = [engine.infer_fused(it["image"][None], thr, "edm") for it in items]
+        confs = [r[3] for r in per_image]
+        exits = [r[1] for r in per_image]
+        row = {
+            "phase": "trained_weights", "dtype": dname, "hw": list(hw), "threshold": thr,
+            "static_miou_per_exit": static["miou"], "ref_static_miou_per_exit": ref["static_miou_per_exit"],
+            "gated_miou": gated["miou"], "ref_gated_miou": ref["gated_miou"],
+            "exit_histogram": gated["exit_histogram"], "ref_exit_histogram": ref["exit_histogram"],
+            "max_abs_conf_err": max(abs(a - b) for a, b in zip(confs, ref["exit0_edm_confidence"])),
+            "exits_differ_far_from_threshold": [s for s, e, r, f in zip(seeds, exits, exits_ref, far)
+                                                if f and e != r],
+            "exits_differ_near_threshold": [s for s, e, r, f in zip(seeds, exits, exits_ref, far)
+                                            if not f and e != r],
+            "mean_latency_ms": gated["mean_latency_s"] * 1e3,
+            "tpu_meta_for_information": {"static_miou_per_exit": meta["static_miou_per_exit"],
+                                         "gated_miou": meta["gated_miou"]},
+            "oracle": f"JAX {ref['jax_version']} on {ref['jax_backend']}, fp32", "nvidia_smi": ctx["smi"],
+        }
+        if gated["exit_histogram"] != [exits.count(0), exits.count(1)]:
+            raise AssertionError(f"trained {dname}: the evaluator's histogram {gated['exit_histogram']} is not "
+                                 f"the per-image exits' {exits}")
+        if dtype == torch.float32:
+            bad = [abs(a - b) > 2e-3 for a, b in zip(static["miou"], ref["static_miou_per_exit"])]
+            if any(bad) or abs(gated["miou"] - ref["gated_miou"]) > 2e-3 or row["exits_differ_far_from_threshold"]:
+                raise AssertionError(f"trained fp32 against the JAX-CPU oracle: {row}")
+        elif not all(0.0 <= v <= 1.0 for v in [*static["miou"], gated["miou"]]):
+            raise AssertionError(f"trained {dname}: mIoU out of range: {row}")
+        # infer_batch on 8 images with both exits (4 and 4, each more than
+        # 1e-3 from the threshold) against per-image infer_fused
+        pick = ([i for i in range(len(seeds)) if far[i] and exits_ref[i] == 0][:4]
+                + [i for i in range(len(seeds)) if far[i] and exits_ref[i] == 1][:4])
+        batch = torch.from_numpy(np.stack([items[i]["image"] for i in pick]))
+        logits, k = engine.infer_batch(batch, thr, "edm")
+        tol = 1e-3 if dtype == torch.float32 else 5e-2
+        errs = []
+        for j, i in enumerate(pick):
+            want, k_want = per_image[i][0], per_image[i][1]
+            if int(k[j]) != k_want:
+                raise AssertionError(f"trained {dname} infer_batch: image {seeds[i]} exits at {int(k[j])}, "
+                                     f"per image at {k_want}")
+            ref_max = want.float().abs().max().item()
+            errs.append((logits[j].float() - want[0].float()).abs().max().item() / ref_max)
+        if not (max(errs) <= tol and torch.isfinite(logits).all()):
+            raise AssertionError(f"trained {dname} infer_batch: relative logits error {max(errs)} > {tol}")
+        row["infer_batch"] = {"n": len(pick), "exits": k.tolist(), "max_rel_err": max(errs), "tol_rel": tol}
+        emit(row)
+        del evaluation, engine, model
 
 
 def phase_kernels(ctx):
@@ -760,13 +1124,13 @@ def phase_kernels(ctx):
 
 PHASES = {
     1: phase_device, 2: phase_k1, 3: phase_k2, 4: phase_cells, 5: phase_model,
-    6: phase_main_path, 7: phase_bench, 8: phase_kernels,
+    6: phase_main_path, 7: phase_engine, 8: phase_trained, 9: phase_kernels,
 }
 
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--phases", default="1,2,3,4,5,6,7,8")
+    p.add_argument("--phases", default="1,2,3,4,5,6,7,8,9")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: no GPU", file=sys.stderr)
@@ -774,10 +1138,13 @@ def main(argv=None):
     phases = [int(v) for v in args.phases.split(",")]
     ctx = {}
     t0 = time.perf_counter()
+    by_phase = {}
     for k in phases:
-        if k == 8:
-            emit({"phase": "elapsed", "seconds": time.perf_counter() - t0})
+        if k == 9:
+            emit({"phase": "elapsed", "seconds": time.perf_counter() - t0, "by_phase": by_phase})
+        t = time.perf_counter()
         PHASES[k](ctx)
+        by_phase[k] = time.perf_counter() - t
     print(ctx.get("smi") or nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

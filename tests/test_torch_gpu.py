@@ -512,3 +512,149 @@ def test_library_name_tracks_source_and_flags(monkeypatch, tmp_path):
     assert _build.library_path("stems") != name
     assert _build.BUILD_DIR.parts[-2:] == ("build", "torch_kernels")
     assert "-gencode" in _build.NVCC_FLAGS and "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+# ------------------------------------------------- engine: CUDA graphs
+
+
+def _engine(dtype, cell_exec, seed=0):
+    """The flagship topology (C=2, F=20, 19 classes) with seeded weights
+    and an EDM, at the engine's small test size."""
+    from auto_dynamic_deeplab_torch.models import ADD, EDM
+    from auto_dynamic_deeplab_torch.nas import NETWORK_ARCH
+    from auto_dynamic_deeplab_torch.train.dynamic import DynamicInferenceEngine
+
+    cfg = NETWORK_ARCH[2]
+    g = torch.Generator().manual_seed(seed)
+    model = randomize_bn(init_params(ADD(
+        cfg["path"], cfg["C_index"], AUTODEEPLAB_GENOTYPE, 19, F=20, B=5,
+        low_level_layer=cfg["low_level_layer"], dtype=dtype, flat_eval=cell_exec == "flat"), g), g)
+    edm = init_params(EDM(model.feature_channels(model.exit_layers[0]), dtype=dtype), g)
+    return DynamicInferenceEngine(model, edm=edm, num_classes=19)
+
+
+ENGINE_HW = (65, 129)
+ENGINE_CASES = [(dtype, cell_exec) for dtype in (torch.float32, torch.bfloat16) for cell_exec in ("xla", "flat")]
+
+
+def _images(n, seed):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(n, *ENGINE_HW, 3, generator=g).cuda()
+
+
+@needs_gpu
+@pytest.mark.parametrize("dtype,cell_exec", ENGINE_CASES, ids=str)
+def test_fused_graphs_match_segment_loop_on_gpu(dtype, cell_exec):
+    """Replayed graphs against the eager segment loop, bitwise: the same
+    kernels on the same inputs. Each signal at a threshold on each side of
+    the image's first confidence, so both exits and EDM's head graph run."""
+    engine = _engine(dtype, cell_exec)
+    x = _images(1, 3)
+    for confidence in ("entropy", "max", "edm"):
+        # the max signal's value depends on the threshold: 0.05 exits (every
+        # pixel's top probability is at least 1/19), 0.999 hardly ever
+        conf = engine.infer(x, 0.0, confidence)[3]
+        for thr in ((0.05, 0.999) if confidence == "max" else (conf - 1e-3, conf + 1e-3)):
+            want, k_want, _, c_want = engine.infer(x, thr, confidence)
+            got, k_got, _, c_got = engine.infer_fused(x, thr, confidence)
+            assert k_got == k_want and c_got == c_want
+            assert got.dtype == want.dtype and torch.equal(got, want), (confidence, thr)
+    assert engine.replays > 0
+
+
+@needs_gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_new_threshold_reuses_graphs_on_gpu(dtype):
+    """A new threshold captures nothing: the max signal reads it inside its
+    graphs (a 0-d device tensor), so its confidence changes with it."""
+    engine = _engine(dtype, "xla")
+    x = _images(1, 4)
+    engine.infer_fused(x, 0.5, "max")
+    captures = engine.captures
+    assert captures == 2  # decide_0 and final
+    for thr in (0.1, 0.9, 0.5, 0.99):
+        _, k, _, conf = engine.infer_fused(x, thr, "max")
+        _, k_want, _, conf_want = engine.infer(x, thr, "max")
+        assert (k, conf) == (k_want, conf_want)
+    assert engine.captures == captures
+
+
+@needs_gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_results_do_not_alias_on_gpu(dtype):
+    """Two successive results are two tensors: the second replay does not
+    overwrite the first image's logits."""
+    engine = _engine(dtype, "flat")
+    x = _images(2, 5)
+    a, _, _, _ = engine.infer_fused(x[:1], 1.01, "entropy")
+    kept = a.clone()
+    b, _, _, _ = engine.infer_fused(x[1:], 1.01, "entropy")
+    torch.cuda.synchronize()
+    assert a.data_ptr() != b.data_ptr() and torch.equal(a, kept) and not torch.equal(a, b)
+
+
+@needs_gpu
+@pytest.mark.parametrize("dtype,cell_exec", ENGINE_CASES, ids=str)
+def test_fused_replays_launch_the_kernels_on_gpu(dtype, cell_exec):
+    """A replay calls no wrapper; torch.profiler sees K1, K2 and, on the
+    flat path, the cell kernels inside the replayed graph. The session
+    holds a fresh engine's warm-up (every segment once), its capture
+    (which launches nothing) and one early-exit replay (cells 0-5): a
+    session that began after the capture lost the replay's first kernel
+    in some runs on the card."""
+    from auto_dynamic_deeplab_torch.kernels import DEVICE_KERNELS, count_device_kernels
+    from auto_dynamic_deeplab_torch.nas import NETWORK_ARCH
+    from auto_dynamic_deeplab_torch.train.dynamic import DynamicInferenceEngine
+
+    engine = _engine(dtype, cell_exec)
+    x = _images(1, 6)
+    wrappers = [pt_stems.fused_stems, pt_conf.entropy_argmax_triton, pt_cell.block_stage, pt_cell.sep_fused,
+                pt_cell.sep_stage, pt_cell.dense_stage]
+    engine.warmup(x.shape, "entropy", 1.01)  # builds the kernels outside the sessions
+    before = [f.launches for f in wrappers]
+
+    def capture_and_replay():
+        DynamicInferenceEngine(engine.model, num_classes=19).infer_fused(x, 1.01, "entropy")
+
+    counts = count_device_kernels(_device_kernels(capture_and_replay))
+    sessions = [f.launches - b for f, b in zip(wrappers, before)]
+
+    def per_cells(cells):
+        want = {"stems_kernel": 1, "entropy_argmax_kernel": 1, "block_kernel": 0, "sep_stage_kernel": 0,
+                "dense_stage_kernel": 0}
+        if cell_exec == "flat":
+            assignment = edge_op_assignment(as_genotype_rows(AUTODEEPLAB_GENOTYPE))
+            path = NETWORK_ARCH[2]["path"]
+            for i in range(cells):
+                for name, v in pt_cell.dag_launches(assignment, 5, 20 * (1, 2, 4, 8)[path[i]], dtype).items():
+                    want[DEVICE_KERNELS[name]] += v
+        return want
+
+    full, early = per_cells(12), per_cells(6)
+    assert counts == {k: full[k] + early[k] for k in full}
+    # each session's wrappers: the warm-up and the capture, none for the replay
+    n_sessions = sessions[0] // 2
+    assert sessions[0] == 2 * n_sessions and sessions[1] == 2 * n_sessions
+    assert sum(sessions[2:]) == 2 * n_sessions * sum(full[k] for k in ("block_kernel", "sep_stage_kernel",
+                                                                         "dense_stage_kernel"))
+
+
+@needs_gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_infer_batch_matches_per_image_on_gpu(dtype):
+    """N = 3 with a threshold between the images' first confidences: one
+    image exits at exit 0 and the other two are compacted into bucket 2.
+    Exits equal; logits within the kernels' tolerance (a batch of three
+    changes cuDNN's choices and the kernels' grids)."""
+    engine = _engine(dtype, "flat")
+    x = _images(3, 7)
+    confs = [engine.infer(x[i:i + 1], 0.0, "edm")[3] for i in range(3)]
+    lo = sorted(confs)[0]
+    thr = (lo + sorted(confs)[1]) / 2
+    logits, exit_index = engine.infer_batch(x, thr, "edm")
+    assert logits.shape == (3, 19, *ENGINE_HW) and logits.dtype == torch.float32
+    assert sorted(exit_index.tolist()) == [0, 1, 1]
+    for i in range(3):
+        want, k, _, _ = engine.infer(x[i:i + 1], thr, "edm")
+        assert k == int(exit_index[i])
+        assert _rel_err(logits[i], want[0].float()) <= _tol(dtype)
