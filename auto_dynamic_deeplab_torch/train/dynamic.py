@@ -262,7 +262,7 @@ def _gather(state, idx: torch.Tensor):
 
 
 class _GraphSet:
-    """The CUDA graphs of one input shape and the static tensors they read
+    """The CUDA graphs of one fused program and the static tensors they read
     and write: every static input and output stays referenced here, so no
     graph's transient memory in the shared pool overlaps a buffer that
     another graph reads, whatever order the decisions replay them in."""
@@ -282,10 +282,10 @@ class FusedProgram:
     (logits (1, C, H, W), exit_index, first decision's confidence) for one
     NHWC image.
 
-    On CUDA, the first call for an input shape runs every segment once,
-    eagerly, on the engine's graph stream (this builds the kernels, fills
-    the packed-weight caches, K2's Triton JIT and its per-stream scratch,
-    and cuDNN's choices, none of which may happen inside a capture), then
+    On CUDA, the first call runs every segment once, eagerly, on the
+    engine's graph stream (this builds the kernels, fills the packed-weight
+    caches, K2's Triton JIT and its per-stream scratch, and cuDNN's
+    choices, none of which may happen inside a capture), then
     captures one CUDA graph for each segment (decide_k for every exit but
     the last, head_k for EDM, final) into the engine's one memory pool.
     Every call replays them on that one stream: the stream the graphs were
@@ -297,12 +297,13 @@ class FusedProgram:
     cloned out of the graph's static output, so the next replay does not
     overwrite them.
 
-    On the CPU (tests) the same segments run eagerly. Either way the exit
-    decision compares in fp32, as the JAX program does."""
+    On the CPU (tests) the engine's eager segment loop (``infer``'s) runs.
+    Either way the exit decision compares with the threshold rounded to
+    fp32, as the JAX program does."""
 
     def __init__(self, engine: DynamicInferenceEngine, size, confidence: str):
         self.engine, self.size, self.confidence = engine, size, confidence
-        self._sets: Dict[tuple, _GraphSet] = {}
+        self._graphs: Optional[_GraphSet] = None  # captured on the first CUDA call
 
     @torch.inference_mode()
     def __call__(self, x: torch.Tensor, threshold: float):
@@ -312,26 +313,15 @@ class FusedProgram:
             raise ValueError(f"the fused program takes one {self.size} image, got {tuple(x.shape)}")
         thr = float(np.float32(threshold))
         if eng.device.type == "cpu":
-            return self._eager(x, thr)
+            logits, exit_index, _, confs = eng._infer(x, thr, self.confidence)
+            return logits, exit_index, confs[0] if confs else float("nan")
         return self._replay(x, thr)
-
-    def _eager(self, x: torch.Tensor, thr: float):
-        eng, conf_kind = self.engine, self.confidence
-        carry, first = x, float("nan")
-        for k in range(len(eng.exits) - 1):
-            carry, conf, maybe_logits = eng._decide(k, carry, self.size, conf_kind, thr)
-            value = float(conf[0])
-            first = value if k == 0 else first
-            if eng._exits_now(value, conf_kind, thr):
-                logits = eng._head(eng.exits[k], carry, self.size) if conf_kind == "edm" else maybe_logits
-                return logits, k, first
-        return eng._final(carry, self.size), len(eng.exits) - 1, first
 
     def _replay(self, x: torch.Tensor, thr: float):
         eng = self.engine
-        gs = self._sets.get(tuple(x.shape))
-        if gs is None:
-            gs = self._sets[tuple(x.shape)] = self._capture(tuple(x.shape))
+        if self._graphs is None:
+            self._graphs = self._capture(tuple(x.shape))
+        gs = self._graphs
         stream = eng._graph_stream()
         caller = torch.cuda.current_stream(eng.device)
         gs.x.copy_(x)
