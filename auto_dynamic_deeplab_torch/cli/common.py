@@ -18,6 +18,13 @@ def add_common_args(p: argparse.ArgumentParser):
     p.add_argument("--B", type=int, default=5)
     p.add_argument("--C", type=int, default=2, choices=[2, 3, 4])
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--run-dir", default="run")
+    p.add_argument("--checkname", default=None)
+    p.add_argument("--sync-bn", action="store_true",
+                   help="cross-replica BN (not ported yet: ROADMAP Queue 1 item 12)")
+    p.add_argument("--crop-size", type=int, nargs=2, default=(769, 769),
+                   help="train crop of the file datasets; the synthetic set's "
+                   "images are --synthetic-crop")
     p.add_argument("--synthetic-crop", type=int, nargs=2, default=(65, 65))
     p.add_argument("--synthetic-length", type=int, default=64)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
@@ -31,3 +38,17 @@ def resolve_arch(args, genotype_path: str | None = None):
     cfg = NETWORK_ARCH[args.C]
     genotype = np.load(genotype_path) if genotype_path else AUTODEEPLAB_GENOTYPE
     return cfg["path"], cfg["C_index"], cfg["low_level_layer"], genotype
+
+
+def reject_unported(args):
+    """Raise on a flag whose feature this package does not have yet,
+    rather than run without it."""
+    if args.sync_bn:
+        raise NotImplementedError(
+            "--sync-bn: cross-replica BN comes with the data-parallel trainer (ROADMAP Queue 1 item 12)"
+        )
+    if getattr(args, "device_augment", False):
+        raise NotImplementedError(
+            "--device-augment: the on-device input pipeline comes with the file loaders "
+            "(ROADMAP Queue 1 item 8)"
+        )

@@ -1,17 +1,20 @@
 """Eval driver (eval.py parity): static per-exit mIoU, or --dynamic
 early-exit inference with mIoU / latency / fps / exit rate / average
 confidence, in the single-program mode as the JAX CLI runs it (on the
-card, one CUDA graph a segment, replayed). Weights come from --seed
-(checkpoint loading is ROADMAP Queue 1 item 6).
+card, one CUDA graph a segment, replayed). Weights come from --seed, or
+from the stage-2 experiment directory --resume (its ``checkpoint``) and
+the stage-3 one --edm-resume (its ``edm``), as cli.train and
+cli.train_edm write them.
 
     python -m auto_dynamic_deeplab_torch.cli.evaluate --dynamic \\
         --confidence entropy --threshold 0.5 --synthetic-crop 1025 2049 \\
-        [--cell-exec flat]
+        [--cell-exec flat] [--resume DIR] [--edm-resume DIR]
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 
 import torch
 
@@ -20,7 +23,8 @@ from ..models import ADD, EDM, BaselineModel
 from ..runtime import resolve_device
 from ..train.evaluator import Evaluation
 from ..utils.initialize import init_params
-from .common import add_common_args, resolve_arch
+from ..utils.saver import restore_checkpoint
+from .common import add_common_args, reject_unported, resolve_arch
 
 
 def build_parser():
@@ -30,6 +34,8 @@ def build_parser():
     p.add_argument("--dynamic", action="store_true")
     p.add_argument("--confidence", default="edm", choices=["edm", "entropy", "max"])
     p.add_argument("--threshold", type=float, default=0.0)
+    p.add_argument("--resume", default=None, help="stage-2 experiment dir")
+    p.add_argument("--edm-resume", default=None, help="stage-3 experiment dir")
     p.add_argument("--genotype", default=None)
     p.add_argument(
         "--cell-exec", default="xla", choices=["xla", "flat"],
@@ -41,7 +47,9 @@ def build_parser():
 
 def build(args):
     """(Evaluation, val loader) of parsed ``args``: the model, its seeded
-    weights and, for a dynamic EDM run, the EDM, on ``args.device``."""
+    or restored weights and, for a dynamic EDM run, the EDM, on
+    ``args.device``."""
+    reject_unported(args)
     device = resolve_device(args.device)
     path, C_index, low_level_layer, genotype = resolve_arch(args, args.genotype)
 
@@ -56,11 +64,15 @@ def build(args):
     model = model_cls(path, C_index, genotype, nclass, F=args.F, B=args.B,
                       low_level_layer=low_level_layer, flat_eval=args.cell_exec == "flat")
     init_params(model, torch.Generator().manual_seed(args.seed))
+    if args.resume:
+        model.load_state_dict(restore_checkpoint(os.path.join(args.resume, "checkpoint"))[0]["model"])
 
     edm = None
     if args.confidence == "edm" and args.dynamic:
         edm = EDM(model.feature_channels(model.exit_layers[0]))
         init_params(edm, torch.Generator().manual_seed(0))
+        if args.edm_resume:
+            edm.load_state_dict(restore_checkpoint(os.path.join(args.edm_resume, "edm"))[0]["model"])
 
     return Evaluation(model, nclass, edm=edm, device=device), val_loader
 

@@ -1,0 +1,100 @@
+"""Stage-2 driver: train the decoded multi-exit network (cli/train.py of
+the JAX package; the reference's train.py), with the JAX CLI's flags, on
+one device: the GPU by default, the CPU with --device cpu.
+
+    python -m auto_dynamic_deeplab_torch.cli.train --epochs 1 \\
+        --synthetic-crop 769 769 --synthetic-length 16 [--bf16] [--remat]
+    python -m auto_dynamic_deeplab_torch.cli.train --device cpu --F 4 \\
+        --synthetic-crop 33 65 --synthetic-length 8 --batch-size 2 --epochs 2 --eval-interval 1
+
+Checkpoints go to {--run-dir}/{--dataset}/{--checkname}/experiment_N.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+
+import torch
+
+from ..data import calculate_class_weights, make_data_loader
+from ..models import ADD, BaselineModel
+from ..runtime import resolve_device
+from ..train.trainer import TrainConfig, Trainer
+from ..utils.initialize import init_params
+from .common import add_common_args, reject_unported, resolve_arch
+
+
+def build_parser():
+    p = argparse.ArgumentParser(description="Train decoded ADD network")
+    add_common_args(p)
+    p.add_argument("--epochs", type=int, default=100)
+    p.add_argument("--lr", type=float, default=0.05)
+    p.add_argument("--lr-scheduler", default="poly", choices=["poly", "cos", "step"])
+    p.add_argument("--min-lr", type=float, default=None)
+    p.add_argument("--weight-decay", type=float, default=4e-5)
+    p.add_argument("--momentum", type=float, default=0.9)
+    p.add_argument("--no-nesterov", action="store_true")
+    p.add_argument("--eval-interval", type=int, default=10)
+    p.add_argument("--use-balanced-weights", action="store_true")
+    p.add_argument("--network", default="ADD", choices=["ADD", "baseline"])
+    p.add_argument("--genotype", default=None, help="path to genotype .npy")
+    p.add_argument("--bf16", action="store_true", help="bfloat16 compute")
+    p.add_argument("--remat", action="store_true", help="checkpoint cells (memory for FLOPs)")
+    p.add_argument("--resume", default=None,
+                   help="'auto' (newest committed checkpoint for this checkname; "
+                        "preemption recovery), a checkpoint file or its experiment dir")
+    p.add_argument("--ft", action="store_true", help="fine-tune: load weights only, restart the schedule")
+    p.add_argument("--device-augment", action="store_true",
+                   help="on-device input pipeline (not ported yet: ROADMAP Queue 1 item 8)")
+    return p
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    reject_unported(args)
+    device = resolve_device(args.device)
+    path, C_index, low_level_layer, genotype = resolve_arch(args, args.genotype)
+
+    train_loader, val_loader, nclass = make_data_loader(
+        args.dataset, args.batch_size, args.test_batch_size,
+        num_workers=args.workers, seed=args.seed,
+        synthetic_length=args.synthetic_length,
+        synthetic_crop=tuple(args.synthetic_crop),
+    )
+
+    model_cls = ADD if args.network == "ADD" else BaselineModel
+    model = model_cls(
+        path, C_index, genotype, nclass, F=args.F, B=args.B, low_level_layer=low_level_layer,
+        dtype=torch.bfloat16 if args.bf16 else None, remat=args.remat,
+    )
+    init_params(model, torch.Generator().manual_seed(args.seed))
+
+    weight = None
+    if args.use_balanced_weights:
+        weight = calculate_class_weights(train_loader.dataset, nclass, max_items=64)
+
+    cfg = TrainConfig(
+        epochs=args.epochs,
+        lr=args.lr,
+        lr_scheduler=args.lr_scheduler,
+        min_lr=args.min_lr,
+        momentum=args.momentum,
+        nesterov=not args.no_nesterov,
+        weight_decay=args.weight_decay,
+        eval_interval=args.eval_interval,
+        use_balanced_weights=args.use_balanced_weights,
+        run_dir=args.run_dir,
+        dataset=args.dataset,
+        checkname=args.checkname or f"{args.network}_C{args.C}_F{args.F}",
+        resume=args.resume,
+        ft=args.ft,
+    )
+    trainer = Trainer(model, train_loader, val_loader, cfg, class_weight=weight, device=device)
+    result = trainer.fit()
+    result["experiment_dir"] = trainer.saver.experiment_dir
+    print(json.dumps({k: v for k, v in result.items() if k != "step_ms"}, default=float))
+    return result
+
+
+if __name__ == "__main__":
+    main()

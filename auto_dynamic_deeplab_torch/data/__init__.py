@@ -7,6 +7,7 @@ from typing import Optional
 
 from .loader import DataLoader, peek_batch
 from .synthetic import SyntheticSegmentation
+from .utils import calculate_class_weights, decode_segmap
 
 
 def make_data_loader(
@@ -36,4 +37,7 @@ def make_data_loader(
     )
 
 
-__all__ = ["DataLoader", "SyntheticSegmentation", "make_data_loader", "peek_batch"]
+__all__ = [
+    "DataLoader", "SyntheticSegmentation", "calculate_class_weights", "decode_segmap",
+    "make_data_loader", "peek_batch",
+]

@@ -60,7 +60,8 @@ class FixedCell(nn.Module):
         the list of earlier taps, each 1x1-projected, concatenated and fused
         by one more 1x1 (ADD.py:47-52,:87-93).
       dense_out: also return dense_process(concat) (ADD.py:56-57,:114).
-      flat_eval: run the DAG through ``run_dag`` (same parameters).
+      flat_eval: run the DAG through ``run_dag`` (same parameters); eval
+        mode only, since the kernels fold eval-mode BN.
     """
 
     def __init__(
@@ -125,6 +126,11 @@ class FixedCell(nn.Module):
             s0 = self.pre_preprocess(s0)
 
         if self.flat_eval:
+            if self.training:
+                raise RuntimeError(
+                    "flat_eval cells run the cell kernels, which fold eval-mode BN: "
+                    "train with flat_eval=False (the same parameters)"
+                )
             ops = [getattr(self, f"ops_{k}") for k in range(len(self.assignment))]
             concat = run_dag(s0, s1, self.assignment, self.B, ops)
         else:

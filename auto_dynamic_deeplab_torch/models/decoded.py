@@ -2,11 +2,14 @@
 single-exit AutoDeepLab (models/decoded.py of the JAX package; the
 reference's modeling/ADD.py:118-525).
 
-Eval only. Images come in NHWC; the backbone state is NCHW in channels_last
-memory; ``forward`` returns NHWC logits, or (N, C, H, W) with
-``class_leading``. Early-exit inference uses the segment methods
-(``stem_state``, ``run_cells``, ``exit_feature``, ``exit_logits``), so
-stopping early skips the later cells.
+Images come in NHWC; the backbone state is NCHW in channels_last memory;
+``forward`` returns NHWC logits, or (N, C, H, W) with ``class_leading``.
+Early-exit inference uses the segment methods (``stem_state``,
+``run_cells``, ``exit_feature``, ``exit_logits``), so stopping early skips
+the later cells. ``nn.Module.training`` picks the mode: training runs the
+plain ops with training-mode BN (the JAX package trains through its
+unfused modules too); the kernels K1 and K3-K6 fold eval BN into their
+weights and run in eval mode only.
 
 ``aspp_size`` uses stride 2^(level+2) everywhere, as ADD.forward does
 (ADD.py:279-280); the reference's dynamic path uses 2^level (ADD.py:383),
@@ -14,16 +17,18 @@ a defect the JAX package does not replicate either.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.stems import fused_stems, stem_weights, stems_reference
 from ..ops.aspp import ASPPTrain
 from ..ops.heads import DecoderHead, LowLevelConv
-from ..ops.norm import BatchNorm
+from ..ops.norm import BatchNorm, frozen_running_stats
 from ..ops.primitives import (
     Conv2d,
     Dense,
@@ -57,17 +62,14 @@ class _Stems(nn.Module):
         self.stem2_conv = Conv2d(64, 128, 3, 2, 1, dtype=dtype)
         self.stem2_bn = BatchNorm(128, dtype=dtype)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """x: (N, 3, H, W) → (s0, s1). The one place that picks K1 (CUDA
-        tensors) or its plain version (CPU tensors); there is no fallback."""
-        if train:
-            raise NotImplementedError(
-                "training-mode BN is not ported yet (ROADMAP Queue 1 item 7)"
-            )
-        if x.device.type == "cuda":
+        tensors in eval mode) or its plain version (CPU tensors, and
+        training, whose BNs take batch statistics); there is no fallback."""
+        if x.device.type == "cuda" and not self.training:
             dtype = self.dtype or torch.float32
             return fused_stems(x, stem_weights(self, dtype), out_dtype=dtype)
-        if x.device.type == "cpu":
+        if x.device.type in ("cuda", "cpu"):
             return stems_reference(self, x)
         raise ValueError(f"unsupported device {x.device}")
 
@@ -79,7 +81,9 @@ class DecodedNet(nn.Module):
     indices (the final layer is always an exit); ``genotype`` the decoded
     cell rows; ``dense=True`` gives ADD's densely connected variant;
     ``flat_eval=True`` runs every cell's DAG through the cell kernels
-    (``--cell-exec flat``) with the same parameters.
+    (``--cell-exec flat``) with the same parameters, in eval mode only;
+    ``remat=True`` checkpoints each cell in training (recomputed in
+    backward: activation memory for FLOPs).
     """
 
     def __init__(
@@ -95,12 +99,15 @@ class DecodedNet(nn.Module):
         fp32_eval_logits: bool = False,
         dtype: Optional[torch.dtype] = None,
         flat_eval: bool = False,
+        remat: bool = False,
     ):
         super().__init__()
         arch = tuple(int(v) for v in network_arch)
+        self.remat = remat
         self.network_arch = arch
         self.C_index = tuple(int(v) for v in C_index)
         self.num_classes = num_classes
+        self.F, self.B = F, B
         self.low_level_layer = low_level_layer
         self.dense = dense
         self.dtype = dtype
@@ -182,6 +189,8 @@ class DecodedNet(nn.Module):
         low_level = state["low_level"]
         for i in range(start, end + 1):
             cell = getattr(self, f"cell_{i}")
+            if self.remat and self.training and torch.is_grad_enabled():
+                cell = _checkpointed(cell)
             if not self.dense:
                 s_pp, s_p = cell(s_pp, s_p)
             elif i >= 3:
@@ -239,11 +248,24 @@ class DecodedNet(nn.Module):
             start = i + 1
         return out
 
-    def get_feature(self, x: torch.Tensor):
-        """(first-exit NHWC logits, its NCHW pre-head feature), ADD.py:327-377."""
+    def get_feature(self, x: torch.Tensor, class_leading: bool = False):
+        """(first-exit logits, NHWC or with ``class_leading`` (N, C, H, W),
+        and its NCHW pre-head feature), ADD.py:327-377."""
         first = self.exit_layers[0]
         state = self.run_cells(self.stem_state(x), 0, first)
-        return self.exit_logits(state, first, tuple(x.shape[1:3])), self.exit_feature(state, first)
+        logits = self.exit_logits(state, first, tuple(x.shape[1:3]), class_leading)
+        return logits, self.exit_feature(state, first)
+
+
+def _checkpointed(cell: nn.Module):
+    """``cell`` whose activations are recomputed in backward instead of
+    kept (JAX: ``nn.remat``); the recomputation leaves the BN running
+    statistics as the forward left them."""
+
+    def contexts():
+        return contextlib.nullcontext(), frozen_running_stats()
+
+    return lambda *args: checkpoint(cell, *args, use_reentrant=False, context_fn=contexts)
 
 
 class EDM(nn.Module):

@@ -20,8 +20,8 @@ class DecoderHead(nn.Module):
 
     Under a bf16 policy the eval logits are cast to bf16 before the final
     resize (ops/heads.py:63-64 of the JAX package) unless
-    ``fp32_eval_logits``. Returns NHWC logits, or (N, C, H, W) with
-    ``class_leading``.
+    ``fp32_eval_logits``; training keeps them fp32 for the loss. Returns
+    NHWC logits, or (N, C, H, W) with ``class_leading``.
     """
 
     def __init__(
@@ -48,7 +48,7 @@ class DecoderHead(nn.Module):
         # the full-size logits then come out (N, C, H, W)-contiguous, the
         # layout K2 reads fastest (JAX: resize_bilinear_cl)
         x = self.classifier(x.float()).contiguous()
-        if self.dtype is not None and not self.fp32_eval_logits:
+        if not self.training and self.dtype is not None and not self.fp32_eval_logits:
             x = x.to(self.dtype)
         x = resize_bilinear(x, size, align_corners=False)
         return x if class_leading else x.permute(0, 2, 3, 1)

@@ -1,8 +1,10 @@
 """NAS primitive op library (ops/primitives.py of the JAX package).
 
-Every module is eval-only and takes NCHW tensors. Weights keep the flax
-names (``kernel``, ``bias``) in PyTorch layout and stay fp32; with a policy
-``dtype`` the operands are cast to it, as flax does with ``dtype=``.
+Every module takes NCHW tensors and trains (its BNs follow
+``nn.Module.training``). Weights keep the flax names (``kernel``, ``bias``)
+in PyTorch layout and stay fp32; with a policy ``dtype`` the operands are
+cast to it, as flax does with ``dtype=``, and the gradients flow back
+through the casts to the fp32 parameters.
 Padding is explicit and symmetric, as in the reference's PyTorch convs.
 
 The 8 primitives (modeling/genotypes.py:5-14) are exposed through ``OPS``:

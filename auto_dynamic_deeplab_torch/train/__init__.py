@@ -1,4 +1,12 @@
 from .dynamic import DynamicInferenceEngine
+from .edm_trainer import make_edm_dataset, train_edm
 from .evaluator import Evaluation
+from .loss import cross_entropy, multi_exit_cross_entropy
+from .schedules import lr_schedule
+from .step import TrainStep, make_optimizer
+from .trainer import TrainConfig, Trainer
 
-__all__ = ["DynamicInferenceEngine", "Evaluation"]
+__all__ = [
+    "DynamicInferenceEngine", "Evaluation", "TrainConfig", "TrainStep", "Trainer", "cross_entropy",
+    "lr_schedule", "make_edm_dataset", "make_optimizer", "multi_exit_cross_entropy", "train_edm",
+]

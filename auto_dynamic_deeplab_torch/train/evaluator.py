@@ -48,7 +48,10 @@ class Evaluation:
     # ------------------------------------------------------------- static
 
     def validate(self, loader) -> Dict:
-        """Per-exit mIoU + mean entropy confidence (train.py:278-297)."""
+        """Per-exit mIoU + mean entropy confidence (train.py:278-297), with
+        the model's weights as they are now (the trainer's ``Evaluation``
+        outlives its optimizer steps and leaves the model in eval mode)."""
+        self.model.eval()
         n_exits = len(self.model.exit_layers)
         evaluators = [Evaluator(self.num_classes, self.device) for _ in range(n_exits)]
         conf_meters = [AverageMeter() for _ in range(n_exits)]

@@ -1,0 +1,182 @@
+"""Stage-2 trainer (train/trainer.py of the JAX package; the reference's
+train.py trainNew, :34-322): the loaders → the single-device train step →
+per-epoch validation (per-exit mIoU and mean entropy confidence) → a
+checkpoint with best-mIoU promotion → scalar summaries.
+
+Validation runs the eval path, K1 and K2 on the card, through one
+``Evaluation`` built at the first validation and reused: it holds the
+model itself, so it reads the weights as the optimizer left them (the
+kernels' folded-weight caches key on the tensors' versions, which the
+optimizer's and the BNs' in-place updates bump). It validates in static
+mode only: a CUDA graph of the fused dynamic mode bakes in K1's packed
+weights at capture.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..runtime import resolve_device
+from ..utils.saver import Saver, find_latest_checkpoint, restore_checkpoint
+from ..utils.summaries import TrainingSummary
+from .evaluator import Evaluation
+from .schedules import lr_schedule
+from .step import TrainStep, make_optimizer
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    epochs: int = 100
+    lr: float = 0.05
+    lr_scheduler: str = "poly"
+    min_lr: Optional[float] = None
+    momentum: float = 0.9
+    nesterov: bool = True
+    weight_decay: float = 4e-5
+    eval_interval: int = 10  # <= 0: no validation (the reference's --no-val)
+    use_balanced_weights: bool = False
+    run_dir: str = "run"
+    dataset: str = "synthetic"
+    checkname: str = "add"
+    # 'auto': the newest committed checkpoint of this run_dir/dataset/
+    # checkname (preemption recovery; a cold start when there is none), or
+    # a checkpoint file or the experiment directory holding one
+    # (the reference's --resume, train.py:184-210)
+    resume: Optional[str] = None
+    # with resume: the weights only, the schedule restarts from epoch 0
+    # (the reference's --ft, train.py:212-214)
+    ft: bool = False
+
+
+class _StepClock:
+    """Each training step's time in ms, from the end of the one before
+    (the first from the epoch's start): CUDA events on the card, read at
+    the epoch's end, so the loop never waits for the device; the host's
+    clock on the CPU."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.marks: List = []
+
+    def mark(self):
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.marks.append(ev)
+        else:
+            self.marks.append(time.perf_counter())
+
+    def step_ms(self) -> List[float]:
+        if self.cuda:
+            if self.marks:
+                self.marks[-1].synchronize()
+            return [a.elapsed_time(b) for a, b in zip(self.marks, self.marks[1:])]
+        return [(b - a) * 1e3 for a, b in zip(self.marks, self.marks[1:])]
+
+
+class Trainer:
+    """Trains ``model`` (initialized by the caller) on ``device`` (cuda
+    unless the caller asks for the CPU; raises without a GPU)."""
+
+    def __init__(
+        self,
+        model,
+        train_loader,
+        val_loader,
+        config: TrainConfig,
+        class_weight: Optional[np.ndarray] = None,
+        device="cuda",
+    ):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device)
+        self.train_loader = train_loader
+        self.val_loader = val_loader
+        self.config = config
+        self.best_pred = 0.0
+        self.step_ms: List[float] = []  # the last training epoch's step times
+
+        schedule = lr_schedule(
+            config.lr_scheduler, config.lr, config.epochs, max(len(train_loader), 1), min_lr=config.min_lr
+        )
+        optimizer = make_optimizer(
+            self.model.parameters(), config.momentum, config.nesterov, config.weight_decay
+        )
+        self.train_step = TrainStep(self.model, optimizer, schedule, class_weight)
+
+        self.start_epoch = 0
+        self._evaluation = None  # built at the first validation, then reused
+        if config.resume:
+            self._resume(config.resume, ft=config.ft)
+
+        self.saver = Saver(config.run_dir, config.dataset, config.checkname)
+        self.saver.save_experiment_config(dataclasses.asdict(config))
+        self.summary = TrainingSummary(self.saver.experiment_dir)
+
+    def _resume(self, resume: str, ft: bool = False):
+        """Restore the weights, BN statistics, optimizer and step from a
+        committed checkpoint; with ``ft`` only the weights and statistics,
+        and the schedule restarts."""
+        path = resume
+        if resume == "auto":
+            path = find_latest_checkpoint(self.config.run_dir, self.config.dataset, self.config.checkname)
+            if path is None:
+                return  # cold start: nothing committed yet
+        elif os.path.isdir(path):
+            path = os.path.join(path, "checkpoint")
+        state, meta = restore_checkpoint(path, map_location=self.device)
+        self.train_step.load_state_dict(state, weights_only=ft)
+        if not ft:
+            self.start_epoch = int(meta.get("epoch", -1)) + 1
+            self.best_pred = float(meta.get("best_pred", 0.0))
+
+    def training(self, epoch: int) -> float:
+        self.train_loader.set_epoch(epoch)
+        losses = []
+        clock = _StepClock(self.device)
+        clock.mark()
+        for batch in self.train_loader:
+            image = torch.as_tensor(batch["image"]).to(self.device)
+            label = torch.as_tensor(batch["label"]).to(self.device)
+            losses.append(self.train_step(image, label))
+            clock.mark()
+        train_loss = float(torch.stack(losses).mean()) if losses else float("nan")
+        self.step_ms = clock.step_ms()
+        self.summary.add_scalar("train/total_loss_epoch", train_loss, epoch)
+        if len(self.step_ms) > 1:
+            self.summary.add_scalar("train/step_ms_median", float(np.median(self.step_ms[1:])), epoch)
+        return train_loss
+
+    def validation(self, epoch: int) -> dict:
+        if self._evaluation is None:
+            self._evaluation = Evaluation(self.model, self.model.num_classes, device=self.device)
+        result = self._evaluation.validate(self.val_loader)
+        for k, miou in enumerate(result["miou"]):
+            self.summary.add_scalar(f"val/mIoU_exit_{k}", miou, epoch)
+            self.summary.add_scalar(f"val/confidence_exit_{k}", result["confidence"][k], epoch)
+        mean_miou = float(np.mean(result["miou"]))
+        is_best = mean_miou > self.best_pred
+        if is_best:
+            self.best_pred = mean_miou
+        self.saver.save_checkpoint(self.train_step.state_dict(), is_best, epoch, self.best_pred)
+        return result
+
+    def fit(self, epochs: Optional[int] = None) -> dict:
+        """Epochs from ``start_epoch``; validates every ``eval_interval``
+        epochs and after the last. Returns the last validation's result
+        with ``train_loss`` and that epoch's ``step_ms``."""
+        epochs = epochs or self.config.epochs
+        result = {}
+        for epoch in range(self.start_epoch, epochs):
+            loss = self.training(epoch)
+            if self.config.eval_interval > 0 and (
+                (epoch + 1) % self.config.eval_interval == 0 or epoch == epochs - 1
+            ):
+                result = self.validation(epoch)
+                result["train_loss"] = loss
+                result["step_ms"] = self.step_ms
+        return result

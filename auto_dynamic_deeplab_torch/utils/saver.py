@@ -1,0 +1,91 @@
+"""Experiment checkpointing (utils/saver.py of the JAX package; the
+reference's utils/saver.py).
+
+The JAX package's run-directory contract: ``run/{dataset}/{checkname}/
+experiment_N`` numbered on, ``checkpoint`` beside ``checkpoint.meta.json``
+(``epoch``, ``best_pred``), ``best_pred.txt`` and ``best_model`` promoted
+when an experiment beats every earlier one's best, and the config in
+``parameters.txt``. A checkpoint is one ``torch.save`` file (here the
+model's state_dict, whose names are the flax paths, the optimizer's state
+and the step), not an orbax directory: the JAX package's checkpoints are
+not read. A checkpoint counts as committed once its ``.meta.json`` exists,
+which is written after the file is in place.
+"""
+from __future__ import annotations
+
+import glob
+import json
+import os
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+
+def _experiments(directory: str):
+    runs = glob.glob(os.path.join(directory, "experiment_*"))
+    return sorted(runs, key=lambda r: int(r.rsplit("_", 1)[-1]))
+
+
+def find_latest_checkpoint(
+    directory_root: str, dataset: str, checkname: str, filename: str = "checkpoint"
+) -> Optional[str]:
+    """The newest experiment's committed ``filename`` under
+    run/{dataset}/{checkname}: the auto-resume (preemption) discovery."""
+    for run in reversed(_experiments(os.path.join(directory_root, dataset, checkname))):
+        path = os.path.join(run, filename)
+        if os.path.isfile(path) and os.path.exists(path + ".meta.json"):
+            return os.path.abspath(path)
+    return None
+
+
+def restore_checkpoint(path: str, map_location="cpu") -> Tuple[Any, Dict]:
+    """(state, meta) of a checkpoint file written by ``Saver``."""
+    state = torch.load(path, map_location=map_location, weights_only=True)
+    meta = {}
+    if os.path.exists(path + ".meta.json"):
+        with open(path + ".meta.json") as f:
+            meta = json.load(f)
+    return state, meta
+
+
+def _save(state: Any, path: str):
+    tmp = path + ".tmp"
+    torch.save(state, tmp)
+    os.replace(tmp, path)
+
+
+class Saver:
+    def __init__(self, directory_root: str, dataset: str, checkname: str):
+        self.directory = os.path.join(directory_root, dataset, checkname)
+        self.runs = _experiments(self.directory)
+        run_id = max((int(r.rsplit("_", 1)[-1]) for r in self.runs), default=-1) + 1
+        self.experiment_dir = os.path.join(self.directory, f"experiment_{run_id}")
+        os.makedirs(self.experiment_dir, exist_ok=True)
+
+    def save_checkpoint(
+        self, state: Any, is_best: bool, epoch: int, best_pred: float, filename: str = "checkpoint"
+    ):
+        """Persist ``state`` and {epoch, best_pred}; when ``is_best``, write
+        best_pred.txt and promote to best_model if no earlier experiment's
+        best_pred.txt is higher (saver.py:22-45)."""
+        path = os.path.join(self.experiment_dir, filename)
+        _save(state, path)
+        with open(path + ".meta.json", "w") as f:
+            json.dump({"epoch": epoch, "best_pred": best_pred}, f)
+        if not is_best:
+            return
+        with open(os.path.join(self.experiment_dir, "best_pred.txt"), "w") as f:
+            f.write(str(best_pred))
+        previous = [0.0]
+        for run in self.runs:
+            p = os.path.join(run, "best_pred.txt")
+            if os.path.exists(p):
+                with open(p) as f:
+                    previous.append(float(f.read()))
+        if best_pred > max(previous):
+            _save(state, os.path.join(self.experiment_dir, "best_model"))
+
+    def save_experiment_config(self, config: Dict[str, Any]):
+        with open(os.path.join(self.experiment_dir, "parameters.txt"), "w") as f:
+            for k, v in sorted(config.items()):
+                f.write(f"{k}: {v}\n")

@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                   # every phase, one card
     python3 chip_smoke.py --phases 1,2,3,4  # a subset (device, K1, K2, K3-K6)
+    python3 chip_smoke.py --phases 1,2,3,10,9  # training, with K1's and K2's checks
 
 Phases, each printing JSON lines and raising on failure:
   1. device: the card, its power limit and the kernels' build time (every
@@ -59,10 +60,25 @@ Phases, each printing JSON lines and raising on failure:
      each image's exit-0 EDM confidence, within TRAINED_FP32_CONF_TOL), then
      infer_batch on 8 of the images (both exits) against per-image
      infer_fused;
-  9. the kernels summary line; each kernel's launches are those phase 6
-     ran on the card: its wrapper count in the static and segment-loop
-     runs, and in the fused runs the profiler's count of the warm-up and
-     the replays (not the capture, which runs nothing).
+  10. training (stages 2 and 3), run before the summary: three fp32
+     steps (TF32 off) of a small ADD on the card against the CPU;
+     cli.train.main on the flagship (C=2, F=20, B=5, 19 classes) at
+     769x769, batch 4, fp32 (2 epochs of 10 steps) and bf16 (1 epoch),
+     each validating 10 images at batch 1 after every epoch (one K1 an
+     image, one K2 an exit), with the step time (the median after the
+     first step),
+     images/s and peak memory; bf16, 20 steps on one batch, whose loss must
+     fall; cli.train_edm --resume on 8 images at 1025x2049 (one K1 and one
+     K2 an image; K2's entropies against its plain version);
+     cli.evaluate --resume, whose per-exit mIoU must equal the trainer's
+     last validation; cli.evaluate --dynamic --confidence edm --resume
+     --edm-resume. Everything is written under a temporary directory;
+  9. the kernels summary line; each kernel's launches are those phases 6
+     and 10 ran on the card: its wrapper count in the static, segment-loop
+     and training runs, and in the fused runs the profiler's count of the
+     warm-up and the replays (not the capture, which runs nothing);
+     ``train_path_launches`` are phase 10's alone. A run of a subset of
+     the phases lists the kernels whose checks (2-4) ran.
 The last lines are the kernels summary, the card's name and power limit
 from nvidia-smi, and {"ok": true, "device": {...}}. Without a GPU, or
 without the port beside it, the script exits non-zero and prints no
@@ -1113,14 +1129,201 @@ def phase_trained(ctx):
         del evaluation, engine, model
 
 
+TRAIN_HW = (769, 769)  # the reference's Cityscapes train crop, cli.train's --crop-size
+TRAIN_BATCH = 4       # cli.train's --batch-size
+TRAIN_IMAGES = 40     # 10 steps an epoch
+TRAIN_VAL = max(8, TRAIN_IMAGES // 4)  # the synthetic validation set's images
+
+
+def _tiny_train_models():
+    """A small ADD (path [1,2,2,2,3,2], F=4, 7 classes) with seeded weights
+    and BN statistics, one on the CPU and one on the card."""
+    from auto_dynamic_deeplab_torch.models import ADD
+    from auto_dynamic_deeplab_torch.nas import AUTODEEPLAB_GENOTYPE
+    from auto_dynamic_deeplab_torch.utils.initialize import init_params, randomize_bn
+
+    out = []
+    for device in ("cpu", "cuda"):
+        model = ADD([1, 2, 2, 2, 3, 2], [1], AUTODEEPLAB_GENOTYPE, 7, F=4, B=5)
+        g = torch.Generator().manual_seed(3)
+        out.append(randomize_bn(init_params(model, g), g).to(device))
+    return out
+
+
+def _state_err(model, ref) -> float:
+    """max over tensors of |Δ| / max(1, max|ref|)."""
+    want = ref.state_dict()
+    return max((t.detach().cpu().double() - want[k].double()).abs().max().item()
+               / max(1.0, want[k].abs().max().item()) for k, t in model.state_dict().items())
+
+
+def _train_parity():
+    """Three fp32 steps (TF32 off) of the tiny ADD on the card against the
+    same steps on the CPU. The first step's loss |Δ| ≤ 1e-5 relative and
+    the parameters and BN statistics after it ≤ 1e-3·max(1, max|ref|); the
+    later losses ≤ 5e-2 relative: at batch 2 the ASPP image-pool BN
+    normalizes over two values and makes the step's gradient
+    ill-conditioned in fp32 (tests/test_torch_train.py)."""
+    from auto_dynamic_deeplab_torch.train.schedules import lr_schedule
+    from auto_dynamic_deeplab_torch.train.step import TrainStep, make_optimizer
+
+    g = torch.Generator().manual_seed(4)
+    image = torch.randn(2, 33, 65, 3, generator=g)
+    label = torch.randint(0, 7, (2, 33, 65), generator=g)
+    label[:, :2] = 255
+    models = _tiny_train_models()
+    steps = [TrainStep(m, make_optimizer(m.parameters()), lr_schedule("poly", 0.02, 1, 4)) for m in models]
+    losses = [[], []]
+    for k in range(3):
+        for i, (m, step) in enumerate(zip(models, steps)):
+            losses[i].append(step(image.to(next(m.parameters()).device), label.to(next(m.parameters()).device)).item())
+        if k == 0:
+            first_err = _state_err(models[1], models[0])
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses[1], losses[0])]
+    row = {"losses_cpu": losses[0], "losses_card": losses[1], "loss_rel_err": rel,
+           "state_err_step1": first_err, "state_err_step3": _state_err(models[1], models[0]),
+           "tol": {"loss_step1": 1e-5, "state_step1": 1e-3, "loss_later": 5e-2}}
+    if not (rel[0] <= 1e-5 and first_err <= 1e-3 and max(rel[1:]) <= 5e-2):
+        raise AssertionError(f"train steps on the card and on the CPU disagree: {row}")
+    return row
+
+
+def _counts(kernels):
+    return {name: f.launches for name, f in kernels.items()}
+
+
+def phase_train(ctx):
+    """Stage 2 and 3 through their entry points on the card: cli.train at
+    full width, cli.train_edm, cli.evaluate --resume / --edm-resume."""
+    from auto_dynamic_deeplab_torch.cli import evaluate, train, train_edm
+    from auto_dynamic_deeplab_torch.data import make_data_loader
+    from auto_dynamic_deeplab_torch.kernels.confidence import entropy_argmax_reference
+    from auto_dynamic_deeplab_torch.train.schedules import lr_schedule
+    from auto_dynamic_deeplab_torch.train.step import TrainStep, make_optimizer
+    from auto_dynamic_deeplab_torch.utils.saver import restore_checkpoint
+
+    if "smi" not in ctx:
+        ctx["smi"] = nvidia_smi_line()
+    kernels = _all_kernels()
+    total = Counter()
+    emit({"phase": "train", "check": "card_vs_cpu_steps", **_train_parity()})
+
+    crop = [str(v) for v in TRAIN_HW]
+    with tempfile.TemporaryDirectory() as tmp:
+        # validation at batch 1; fp32 trains 2 epochs of 10 steps and
+        # validates after each (the second validation must see the weights
+        # the first packed for K1 changed), bf16 1 epoch
+        base = ["--synthetic-crop", *crop, "--synthetic-length", str(TRAIN_IMAGES), "--batch-size", str(TRAIN_BATCH),
+                "--test-batch-size", "1", "--eval-interval", "1", "--workers", "8", "--run-dir", tmp]
+        runs = {}
+        for name, extra in (("fp32", ["--epochs", "2"]), ("bf16", ["--epochs", "1", "--bf16"])):
+            for f in kernels.values():
+                f.launches = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            result = train.main(base + extra + ["--checkname", f"ADD_{name}"])
+            wall = time.perf_counter() - t0
+            counts = _counts(kernels)
+            step_ms = statistics.median(result["step_ms"][1:])
+            epochs = int(extra[1])
+            row = {
+                "run": f"cli.train {name}", "hw": list(TRAIN_HW), "batch": TRAIN_BATCH, "epochs": epochs,
+                "steps_per_epoch": len(result["step_ms"]), "step_ms_all": result["step_ms"],
+                "step_ms_median_after_first": step_ms, "images_per_s": TRAIN_BATCH * 1e3 / step_ms,
+                "peak_gb": torch.cuda.max_memory_allocated() / 2**30, "train_loss": result["train_loss"],
+                "val_miou": result["miou"], "wall_s": wall, "launches": counts, "nvidia_smi": ctx["smi"],
+            }
+            # one K1 an image and one K2 an exit in each validation; none in training
+            want = {"fused_stems": TRAIN_VAL * epochs, "entropy_argmax_triton": 2 * TRAIN_VAL * epochs}
+            if any(counts[k] != v for k, v in want.items()) or not np.isfinite(result["train_loss"]):
+                raise AssertionError(f"cli.train {name}: {row}, want launches {want}")
+            emit({"phase": "train", **row})
+            total.update(counts)
+            runs[name] = result
+
+        # bf16, 20 steps on one fixed full-width batch: the loss falls
+        model = _flagship(torch.bfloat16, seed=5).cuda()
+        step = TrainStep(model, make_optimizer(model.parameters()), lr_schedule("poly", 0.05, 1, 20))
+        loader, _, _ = make_data_loader("synthetic", TRAIN_BATCH, synthetic_length=TRAIN_BATCH,
+                                        synthetic_crop=TRAIN_HW, num_workers=4)
+        batch = next(iter(loader))
+        image, label = (torch.as_tensor(batch[k]).cuda() for k in ("image", "label"))
+        losses = [step(image, label) for _ in range(20)]
+        losses = torch.stack(losses).tolist()
+        emit({"phase": "train", "run": "bf16 one batch, 20 steps", "losses": losses})
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            raise AssertionError(f"bf16 20 steps on one batch: the loss did not fall: {losses}")
+        del model, step
+
+        # stage 3 on the fp32 checkpoint, 8 synthetic images at 1025x2049
+        exp = runs["fp32"]["experiment_dir"]
+        edm_argv = ["--synthetic-crop", str(FULL_HW[0]), str(FULL_HW[1]), "--synthetic-length", "8",
+                    "--workers", "8", "--run-dir", tmp, "--resume", exp]
+        for f in kernels.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        l1 = train_edm.main(edm_argv)
+        counts = _counts(kernels)
+        edm_exp = str(Path(tmp) / "synthetic" / "edm_C2" / "experiment_0")
+        ent = np.load(next(Path(edm_exp).glob("entropy_*.npy")))
+        # K2's entropies against its plain version on the same logits
+        model = _flagship()
+        model.load_state_dict(restore_checkpoint(str(Path(exp) / "checkpoint"))[0]["model"])
+        model = model.cuda().eval()
+        loader, _, _ = make_data_loader("synthetic", 1, synthetic_length=8, synthetic_crop=FULL_HW, num_workers=4)
+        plain = []
+        with torch.inference_mode():
+            for b in loader:
+                logits, _ = model.get_feature(torch.as_tensor(b["image"]).cuda(), class_leading=True)
+                plain.append(entropy_argmax_reference(logits, 19, class_axis=1)[0].item())
+        err = float(np.abs(np.sort(ent) - np.sort(plain)).max())
+        row = {"run": "cli.train_edm --resume", "hw": list(FULL_HW), "n_images": 8, "edm_l1": l1,
+               "wall_s": time.perf_counter() - t0, "launches": counts, "k2_entropy_max_abs_err": err}
+        if counts["entropy_argmax_triton"] != 8 or counts["fused_stems"] != 8 or not (err <= 1e-5 and np.isfinite(l1)):
+            raise AssertionError(f"cli.train_edm: {row}")
+        emit({"phase": "train", **row})
+        total.update(counts)
+        del model
+
+        # the checkpoint round trip: cli.evaluate --resume gives the trainer's last validation
+        ev = ["--synthetic-crop", *crop, "--synthetic-length", str(TRAIN_IMAGES), "--workers", "8", "--resume", exp]
+        for f in kernels.values():
+            f.launches = 0
+        stats = evaluate.main(ev)
+        counts = _counts(kernels)
+        want = runs["fp32"]["miou"]
+        diff = max(abs(a - b) for a, b in zip(stats["miou"], want))
+        row = {"run": "cli.evaluate --resume", "miou": stats["miou"], "trainer_miou": want,
+               "max_abs_diff": diff, "launches": counts}
+        if diff > 1e-9 or counts["fused_stems"] != TRAIN_VAL or counts["entropy_argmax_triton"] != 2 * TRAIN_VAL:
+            raise AssertionError(f"cli.evaluate --resume: {row}")
+        emit({"phase": "train", **row})
+        total.update(counts)
+
+        for f in kernels.values():
+            f.launches = 0
+        stats = evaluate.main(ev + ["--dynamic", "--confidence", "edm", "--edm-resume", edm_exp])
+        _check_dynamic_stats("dynamic_edm_trained", "xla", stats, TRAIN_VAL)
+        emit({"phase": "train", "run": "cli.evaluate --dynamic --confidence edm --resume --edm-resume",
+              "stats": stats, "wrapper_calls": _counts(kernels)})
+    launches = ctx.setdefault("launches", {})
+    for name, n in total.items():
+        launches[name] = launches.get(name, 0) + n
+    ctx["train_launches"] = dict(total)
+
+
 def phase_kernels(ctx):
-    k1, k2, cells = ctx["k1"], ctx["k2"], ctx["cells"]
+    """The kernels line; a run of a subset of the phases lists the kernels
+    whose checks (phases 2-4) ran."""
+    k1, k2, cells = ctx.get("k1"), ctx.get("k2"), ctx.get("cells", {})
     launches = ctx.get("launches", {})
 
     def entry(name, route, source, replaces, main, other):
         return {
             "name": name, "route": route, "source": source, "replaces": replaces,
-            "launches": launches.get(name, 0), "max_abs_err": main["max_abs_err"],
+            "launches": launches.get(name, 0), "train_path_launches": ctx.get("train_launches", {}).get(name, 0),
+            "max_abs_err": main["max_abs_err"],
             "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main.get("library_ms"), "dtype": main["dtype"],
             "shape": main.get("shape"), "bf16_ms": other["ms"], "bf16_plain_ms": other["plain_ms"],
@@ -1131,32 +1334,29 @@ def phase_kernels(ctx):
     cu = "auto_dynamic_deeplab_torch/csrc/cell_ops.cu"
     tpu = "auto_dynamic_deeplab_tpu/kernels/cell_ops.py"
     # the main path (cli.evaluate) runs the fp32 policy; bf16 is bench.py's
-    print(json.dumps({"kernels": [
-        entry("fused_stems", "cuda", "auto_dynamic_deeplab_torch/csrc/stems.cu",
-              "auto_dynamic_deeplab_tpu/kernels/stems.py:266", k1["float32"], k1["bfloat16"]),
-        entry("entropy_argmax_triton", "triton",
-              "auto_dynamic_deeplab_torch/kernels/_entropy_argmax_triton.py",
-              "auto_dynamic_deeplab_tpu/kernels/confidence.py:47", k2["float32"], k2["bfloat16"]),
-        entry("block_stage", "cuda", cu, f"{tpu}:765", cells["block_stage"]["float32"],
-              cells["block_stage"]["bfloat16"]),
-        entry("sep_fused", "cuda", cu, f"{tpu}:385", cells["sep_fused"]["float32"],
-              cells["sep_fused"]["bfloat16"]),
-        entry("sep_stage", "cuda", cu, f"{tpu}:466", cells["sep_stage"]["float32"],
-              cells["sep_stage"]["bfloat16"]),
-        entry("dense_stage", "cuda", cu, f"{tpu}:495", cells["dense_stage"]["float32"],
-              cells["dense_stage"]["bfloat16"]),
-    ]}), flush=True)
+    rows = []
+    if k1:
+        rows.append(entry("fused_stems", "cuda", "auto_dynamic_deeplab_torch/csrc/stems.cu",
+                          "auto_dynamic_deeplab_tpu/kernels/stems.py:266", k1["float32"], k1["bfloat16"]))
+    if k2:
+        rows.append(entry("entropy_argmax_triton", "triton",
+                          "auto_dynamic_deeplab_torch/kernels/_entropy_argmax_triton.py",
+                          "auto_dynamic_deeplab_tpu/kernels/confidence.py:47", k2["float32"], k2["bfloat16"]))
+    for name, line in (("block_stage", 765), ("sep_fused", 385), ("sep_stage", 466), ("dense_stage", 495)):
+        if name in cells:
+            rows.append(entry(name, "cuda", cu, f"{tpu}:{line}", cells[name]["float32"], cells[name]["bfloat16"]))
+    print(json.dumps({"kernels": rows}), flush=True)
 
 
 PHASES = {
     1: phase_device, 2: phase_k1, 3: phase_k2, 4: phase_cells, 5: phase_model,
-    6: phase_main_path, 7: phase_engine, 8: phase_trained, 9: phase_kernels,
+    6: phase_main_path, 7: phase_engine, 8: phase_trained, 9: phase_kernels, 10: phase_train,
 }
 
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--phases", default="1,2,3,4,5,6,7,8,9")
+    p.add_argument("--phases", default="1,2,3,4,5,6,7,8,10,9")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: no GPU", file=sys.stderr)

@@ -658,3 +658,74 @@ def test_infer_batch_matches_per_image_on_gpu(dtype):
         want, k, _, _ = engine.infer(x[i:i + 1], thr, "edm")
         assert k == int(exit_index[i])
         assert _rel_err(logits[i], want[0].float()) <= _tol(dtype)
+
+
+@needs_gpu
+def test_train_step_on_gpu_matches_cpu():
+    """One fp32 step (TF32 off) of a small ADD (path [1,2,2,2,3,2], F=4, 7
+    classes, batch 2 at 33x65) on the card against the same step on the
+    CPU, from the same weights: the loss ≤ 1e-5 relative, the parameters
+    and BN statistics after it |Δ| ≤ 1e-3·max(1, max|ref|) per tensor (the
+    step's gradient is ill-conditioned at batch 2: the ASPP image-pool BN
+    normalizes over two values), and validation on the card afterwards
+    reads the new weights (K1's packed weights are rebuilt)."""
+    from auto_dynamic_deeplab_torch import models as pt_models
+    from auto_dynamic_deeplab_torch.runtime import resolve_device
+    from auto_dynamic_deeplab_torch.train.schedules import lr_schedule
+    from auto_dynamic_deeplab_torch.train.step import TrainStep, make_optimizer
+
+    resolve_device("cuda")  # TF32 off
+    g = torch.Generator().manual_seed(0)
+    path, hw = [1, 2, 2, 2, 3, 2], (33, 65)
+    image = torch.randn(2, *hw, 3, generator=g)
+    label = torch.randint(0, 7, (2, *hw), generator=g)
+    label[:, :2] = 255
+    models, losses = [], []
+    for device in ("cpu", "cuda"):
+        model = pt_models.ADD(path, [1], AUTODEEPLAB_GENOTYPE, 7, F=4, B=5)
+        randomize_bn(init_params(model, torch.Generator().manual_seed(1)), torch.Generator().manual_seed(2))
+        model.to(device)
+        if device == "cuda":  # K1 packs the stems' weights before the step
+            with torch.inference_mode():
+                model.eval().stems(image.cuda().permute(0, 3, 1, 2))
+        step = TrainStep(model, make_optimizer(model.parameters()), lr_schedule("poly", 0.02, 1, 4))
+        losses.append(step(image.to(device), label.to(device)).item())
+        models.append(model)
+    assert abs(losses[1] - losses[0]) <= 1e-5 * losses[0], losses
+    want = models[0].state_dict()
+    for name, t in models[1].state_dict().items():
+        err = (t.cpu().double() - want[name].double()).abs().max().item()
+        assert err <= 1e-3 * max(1.0, want[name].abs().max().item()), (name, err)
+    gpu = models[1].eval()
+    with torch.inference_mode():
+        before = pt_stems.fused_stems.launches
+        s0, s1 = gpu.stems(image.cuda().permute(0, 3, 1, 2))
+        assert pt_stems.fused_stems.launches == before + 1
+        ref0, ref1 = pt_stems.stems_reference(gpu.stems, image.cuda().permute(0, 3, 1, 2))
+    assert _rel_err(s1, ref1) <= 1e-4 and _rel_err(s0, ref0) <= 1e-4  # not the packing from before the step
+
+
+@needs_gpu
+@pytest.mark.parametrize("shape", [(1, 6, 1, 1), (2, 6, 5, 7)], ids=["n1", "n70"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batchnorm_train_on_gpu_matches_cpu(shape, dtype):
+    """Training-mode BN on the card (cuDNN) against the CPU, n = 1 (the
+    ASPP image-pool branch at batch 1) included: output, input and
+    parameter gradients, and the blended statistics. fp32 |Δ| ≤ 1e-5·max(1,
+    max|ref|) (2e-4 at n = 1, where x − mean is scaled by rsqrt(eps));
+    bf16 within one bf16 unit."""
+    from auto_dynamic_deeplab_torch.ops.norm import BatchNorm
+
+    g = torch.Generator().manual_seed(5)
+    x = (torch.randn(*shape, generator=g) * 2 + 0.5).to(dtype)
+    grad = torch.randn(*shape, generator=g)
+    outs = []
+    for device in ("cpu", "cuda"):
+        bn = randomize_bn(BatchNorm(shape[1], dtype=dtype), torch.Generator().manual_seed(6)).to(device).train()
+        xi = x.to(device).clone().requires_grad_()
+        y = bn(xi)
+        (y.float() * grad.to(device)).sum().backward()
+        outs.append([t.detach().float().cpu() for t in (y, xi.grad, bn.scale.grad, bn.bias.grad, bn.mean, bn.var)])
+    tol = (1e-5 if shape[0] > 1 else 2e-4) if dtype == torch.float32 else 2.0 ** -7
+    for name, a, b in zip(("y", "dx", "dscale", "dbias", "mean", "var"), outs[1], outs[0]):
+        assert (a - b).abs().max().item() <= tol * max(1.0, b.abs().max().item()), name

@@ -86,8 +86,18 @@ def test_fused_stems_refuses_cpu_tensors(stem_vars):
 
 
 def test_stems_train_mode_not_ported(stem_vars):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_module(PtStems(), stem_vars)(nchw(_image((9, 9))), train=True)
+    """Training mode runs the plain stems with batch statistics (K1 folds
+    eval BN), as the JAX ``_Stems(train=True)``: s0, s1 and the updated
+    BN statistics at the stems' fp32 tolerance."""
+    x = _image((9, 9), n=2)
+    ref, mutated = JxStems().apply(stem_vars, jx(x), True, mutable=["batch_stats"])
+    m = port_module(PtStems(), stem_vars).train()
+    for o, r in zip(m(nchw(x)), ref):
+        assert_close_fp32_module(nhwc_np(o), r)
+    for name, stats in mutated["batch_stats"].items():
+        bn = getattr(m, name)
+        for k in ("mean", "var"):
+            assert_close_fp32_module(getattr(bn, k).numpy(), stats[k])
 
 
 # ----------------------------------------------- K1 (tensor-core) host side

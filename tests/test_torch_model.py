@@ -420,6 +420,9 @@ def test_port_imports_no_jax():
         "        importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'msgpack', 'auto_dynamic_deeplab_tpu')]\n"
         "assert not bad, bad\n"
+        "new = ['train.loss', 'train.schedules', 'train.step', 'train.trainer', 'train.edm_trainer',\n"
+        "       'utils.saver', 'utils.summaries', 'data.utils', 'cli.train', 'cli.train_edm']\n"
+        "assert all(p.__name__ + '.' + m in sys.modules for m in new)\n"
         "print('ok')\n"
     )
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
