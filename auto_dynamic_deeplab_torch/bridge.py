@@ -1,9 +1,22 @@
 """Carry the JAX package's flax variables into a port module.
 
-``variables`` is the flax ``{"params": ..., "batch_stats": ...}`` tree as
-nested dicts of numpy arrays (or anything ``np.asarray`` accepts). The port
-names every parameter and buffer after its flax path, so
-``params/cell_3/ops_0/dw1/kernel`` lands on ``cell_3.ops_0.dw1.kernel``.
+``variables`` is the flax ``{"params": ..., "batch_stats": ...}`` tree, and
+for a supernet its ``arch`` collection (``alphas``, ``betas``), as nested
+dicts of numpy arrays (or anything ``np.asarray`` accepts). The port names
+every parameter and buffer after its flax path, so
+``params/cell_3/ops_0/dw1/kernel`` lands on ``cell_3.ops_0.dw1.kernel``,
+``arch/betas`` on ``betas``; the port's modules carry flax's names for the
+lists a flax module builds in ``setup`` (``l{i}_c{j}``,
+``dense_preprocess_{i}_{j}``, ``aspp_{lv}``, ``aspp_exit_{s}_{lv}``,
+``mixed_{e}``, ``pool_bn_{i}``).
+
+A mixed supernet cell of the JAX package's ``banked`` or ``scan`` layout
+(``mixed_exec``) carries its edges' variables stacked on leading lane
+axes: ``bank_{i}/...`` (2+i lanes, block i) and ``blocks/bank/...`` (B
+blocks x B+2 lanes, lanes past a block's 2+i edges zero-weight padding).
+Those are unstacked onto the per-edge ``mixed_{e}`` modules, e = the
+block's first edge + lane, and the padding lanes are dropped.
+
 Layout rules (tests/torch_bridge.py:10-37):
 
   * conv kernel (kh, kw, in/groups, out) → (out, in/groups, kh, kw), which
@@ -18,6 +31,7 @@ raises and changes nothing.
 """
 from __future__ import annotations
 
+import re
 from typing import Dict
 
 import numpy as np
@@ -34,6 +48,43 @@ def _flatten(tree, prefix: str, out: Dict[str, np.ndarray]):
             out[key] = np.asarray(v)
 
 
+def _edge_offset(block: int) -> int:
+    return sum(2 + i for i in range(block))
+
+
+def _per_edge(flat: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Unstack the banked and scan layouts' lanes onto per-edge keys."""
+    out: Dict[str, np.ndarray] = {}
+
+    def put(key, arr):
+        if key in out:
+            raise KeyError(f"two flax leaves land on {key}")
+        out[key] = arr
+
+    for key, arr in flat.items():
+        parts = key.split(".")
+        scan = [k for k in range(len(parts) - 1) if parts[k] == "blocks" and parts[k + 1] == "bank"]
+        bank = [k for k, p in enumerate(parts) if re.fullmatch(r"bank_\d+", p)]
+        if scan:
+            k = scan[0]
+            blocks, lanes = arr.shape[:2]
+            if lanes != blocks + 2:
+                raise ValueError(f"{key}: scan lanes {lanes} != blocks {blocks} + 2")
+            for b in range(blocks):
+                for j in range(2 + b):  # lanes >= 2 + b: zero-weight padding
+                    put(".".join(parts[:k] + [f"mixed_{_edge_offset(b) + j}"] + parts[k + 2:]), arr[b, j])
+        elif bank:
+            k = bank[0]
+            b = int(parts[k].split("_")[1])
+            if arr.shape[0] != 2 + b:
+                raise ValueError(f"{key}: {arr.shape[0]} lanes, block {b} has {2 + b} edges")
+            for j in range(2 + b):
+                put(".".join(parts[:k] + [f"mixed_{_edge_offset(b) + j}"] + parts[k + 1:]), arr[j])
+        else:
+            put(key, arr)
+    return out
+
+
 def _to_torch_layout(name: str, arr: np.ndarray) -> np.ndarray:
     if name.rsplit(".", 1)[-1] == "kernel":
         if arr.ndim == 4:
@@ -44,13 +95,14 @@ def _to_torch_layout(name: str, arr: np.ndarray) -> np.ndarray:
 
 
 def load_jax_variables(module: nn.Module, variables) -> nn.Module:
-    """Copy flax params and batch stats into ``module`` (see module doc)."""
+    """Copy flax params, batch stats and arch into ``module`` (see module doc)."""
     flat: Dict[str, np.ndarray] = {}
-    for collection in ("params", "batch_stats"):
+    for collection in ("params", "batch_stats", "arch"):
         _flatten(variables.get(collection, {}), "", flat)
-    extra = set(variables) - {"params", "batch_stats"}
+    extra = set(variables) - {"params", "batch_stats", "arch"}
     if extra:
         raise KeyError(f"unsupported variable collections: {sorted(extra)}")
+    flat = _per_edge(flat)
 
     targets = dict(module.named_parameters())
     targets.update(module.named_buffers())

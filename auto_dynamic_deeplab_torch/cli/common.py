@@ -5,7 +5,7 @@ import argparse
 
 import numpy as np
 
-from ..nas.genotypes import AUTODEEPLAB_GENOTYPE, NETWORK_ARCH
+from ..nas.genotypes import AUTODEEPLAB_GENOTYPE, NETWORK_ARCH, SEARCH_C_INDEX
 
 
 def add_common_args(p: argparse.ArgumentParser):
@@ -38,6 +38,11 @@ def resolve_arch(args, genotype_path: str | None = None):
     cfg = NETWORK_ARCH[args.C]
     genotype = np.load(genotype_path) if genotype_path else AUTODEEPLAB_GENOTYPE
     return cfg["path"], cfg["C_index"], cfg["low_level_layer"], genotype
+
+
+def search_c_index(C: int):
+    """The exit stations cli.search takes for --C (search.py:81-88)."""
+    return SEARCH_C_INDEX[C]
 
 
 def reject_unported(args):

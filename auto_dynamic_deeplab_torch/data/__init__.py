@@ -1,6 +1,6 @@
 """Loader factory (data/__init__.py::make_data_loader of the JAX package),
-synthetic data only in this slice: Cityscapes and Pascal wait for ROADMAP
-Queue 1 item 8."""
+synthetic data only in this slice: Cityscapes and Pascal (and the search
+split of Cityscapes, ``two_train_seg``) wait for ROADMAP Queue 1 item 8."""
 from __future__ import annotations
 
 from typing import Optional
@@ -19,8 +19,10 @@ def make_data_loader(
     seed: int = 0,
     synthetic_length: int = 64,
     synthetic_crop=(65, 65),
+    supernet: bool = False,
 ):
-    """Returns (train, val, num_classes)."""
+    """Returns (train, val, num_classes); with ``supernet`` (the bilevel
+    search) (train, train B, val, num_classes), B the seed-2 half."""
     if dataset != "synthetic":
         raise NotImplementedError(
             f"dataset {dataset!r} is not ported yet (ROADMAP Queue 1 item 8); "
@@ -30,9 +32,13 @@ def make_data_loader(
     train_set = SyntheticSegmentation(synthetic_length, synthetic_crop)
     val_set = SyntheticSegmentation(max(8, synthetic_length // 4), synthetic_crop, seed=1)
     kw = dict(num_workers=num_workers, seed=seed, shard=shard)
+    val = DataLoader(val_set, test_batch_size, shuffle=False, drop_last=False, **kw)
+    if supernet:
+        half = SyntheticSegmentation(synthetic_length // 2, synthetic_crop, seed=2)
+        return DataLoader(train_set, batch_size, **kw), DataLoader(half, batch_size, **kw), val, train_set.NUM_CLASSES
     return (
         DataLoader(train_set, batch_size, **kw),
-        DataLoader(val_set, test_batch_size, shuffle=False, drop_last=False, **kw),
+        val,
         train_set.NUM_CLASSES,
     )
 

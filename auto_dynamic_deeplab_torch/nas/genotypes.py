@@ -20,6 +20,12 @@ PRIMITIVES = [
     "dil_conv_5x5",
 ]
 
+
+def num_edges(B: int) -> int:
+    """k = sum_{i<B} (2+i): 20 for B=5 (model_search.py:634)."""
+    return sum(2 + i for i in range(B))
+
+
 # Decoded network paths hardcoded in the reference's train driver
 # (train.py:75-100). low_level_layer is the dense skip tap for the decoder.
 NETWORK_ARCH = {

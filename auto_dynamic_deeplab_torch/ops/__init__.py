@@ -1,4 +1,4 @@
-from .aspp import ASPPTrain
+from .aspp import ASPPSearch, ASPPTrain
 from .confidence import confidence_max, normalized_shannon_entropy
 from .heads import DecoderHead, LowLevelConv
 from .norm import BatchNorm
@@ -15,9 +15,10 @@ from .primitives import (
     SepConv,
     Zero,
 )
-from .resize import resize_bilinear, resize_bilinear_cl, scale_dimension
+from .resize import resize_bilinear, resize_bilinear_cl, scale_dimension, scale_dimension_search
 
 __all__ = [
+    "ASPPSearch",
     "ASPPTrain",
     "BatchNorm",
     "Conv2d",
@@ -38,4 +39,5 @@ __all__ = [
     "resize_bilinear",
     "resize_bilinear_cl",
     "scale_dimension",
+    "scale_dimension_search",
 ]

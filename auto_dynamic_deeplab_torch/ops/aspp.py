@@ -1,5 +1,6 @@
-"""5-branch ASPP of the decoded models (ops/aspp.py::ASPPTrain of the JAX
-package, aspp_train.py:8-61 of the reference).
+"""ASPP heads (ops/aspp.py of the JAX package): the 5-branch ``ASPPTrain``
+of the decoded models (aspp_train.py:8-61 of the reference) and the
+3-branch ``ASPPSearch`` of the supernets' exits (operations.py:122-158).
 
 The JAX package computes the large-dilation branches as one matmul plus
 shifted adds (``_ShiftedDilatedConv3x3``) and the final 1x1 over a virtual
@@ -61,3 +62,31 @@ class ASPPTrain(nn.Module):
         x5 = F.relu(self.aspp5_bn(self.aspp5_conv(x5)))
         branches.append(resize_bilinear(x5, x.shape[2:], align_corners=True))
         return self.bn1(self.conv1(torch.cat(branches, dim=1)))
+
+
+class ASPPSearch(nn.Module):
+    """3-branch search-time ASPP head: 1x1, one 3x3 atrous conv, global
+    pool (upsampled with align_corners=True); concat → 1x1 fuse → 1x1 to
+    ``out`` classes (no BN). Every branch width is the input's."""
+
+    def __init__(self, in_features: int, out: int, dilation: int, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        c = in_features
+        self.conv11 = Conv2d(c, c, 1, dtype=dtype)
+        self.bn11 = BatchNorm(c, dtype=dtype)
+        self.conv33 = Conv2d(c, c, 3, padding=dilation, dilation=dilation, dtype=dtype)
+        self.bn33 = BatchNorm(c, dtype=dtype)
+        self.conv_p = Conv2d(c, c, 1, dtype=dtype)
+        self.bn_p = BatchNorm(c, dtype=dtype)
+        self.concate_conv = Conv2d(3 * c, c, 1, dtype=dtype)
+        self.concate_bn = BatchNorm(c, dtype=dtype)
+        self.final_conv = Conv2d(c, out, 1, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.relu(x)
+        y1 = F.relu(self.bn11(self.conv11(x)))
+        y2 = F.relu(self.bn33(self.conv33(x)))
+        yp = F.relu(self.bn_p(self.conv_p(x.mean(dim=(2, 3), keepdim=True))))
+        yp = resize_bilinear(yp, x.shape[2:], align_corners=True)
+        y = F.relu(self.concate_bn(self.concate_conv(torch.cat([y1, y2, yp], dim=1))))
+        return self.final_conv(y)

@@ -29,3 +29,8 @@ def resize_bilinear_cl(x: torch.Tensor, size, align_corners: bool = False) -> to
 def scale_dimension(dim: int, scale: float) -> int:
     """The reference's odd-size scaling rule (modeling/ADD.py:65-66)."""
     return int((float(dim) - 1.0) * scale + 1.0)
+
+
+def scale_dimension_search(dim: int, scale: float) -> int:
+    """Search-cell variant (cell_level_search.py:80-82): even dims use dim*scale."""
+    return int((float(dim) - 1.0) * scale + 1.0) if dim % 2 else int(dim * scale)

@@ -1,18 +1,22 @@
-"""The training step (train/step.py of the JAX package; the reference's
-loop body, train.py:216-247): SGD with Nesterov momentum and PyTorch's
-weight decay, a per-iteration learning rate, and the joint multi-exit
-cross entropy.
+"""The training steps (train/step.py of the JAX package): the stage-2 step
+(the reference's loop body, train.py:216-247: SGD with Nesterov momentum
+and PyTorch's weight decay, a per-iteration learning rate, the joint
+multi-exit cross entropy) and the bilevel NAS search steps
+(search.py:190-224).
 
 ``torch.optim.SGD(momentum, nesterov, weight_decay)`` is the JAX package's
 ``optax.add_decayed_weights`` + ``optax.sgd(nesterov)`` chain: the decay is
-added to the raw gradient before the momentum buffer's update. The bf16
-policy keeps fp32 parameters (the convs cast them) and, as in JAX, uses no
-loss scaler. One device: the data-parallel step waits for ROADMAP Queue 1
-item 12, the architecture optimizer for NAS search (item 11).
+added to the raw gradient before the momentum buffer's update.
+``torch.optim.Adam(weight_decay)`` is its architecture optimizer's chain
+(``add_decayed_weights`` + ``scale_by_adam`` + ``scale(-lr)``): L2 in the
+gradient before the moments, not AdamW's decoupled decay. The bf16 policy
+keeps fp32 parameters (the convs cast them) and, as in JAX, uses no loss
+scaler. One device: the data-parallel steps wait for ROADMAP Queue 1 item
+12.
 """
 from __future__ import annotations
 
-from typing import Iterable, Optional
+from typing import Iterable, List, Optional
 
 import numpy as np
 import torch
@@ -29,6 +33,13 @@ def make_optimizer(
 ) -> torch.optim.SGD:
     """SGD over ``params``; its learning rate is set by ``TrainStep``."""
     return torch.optim.SGD(params, lr=0.0, momentum=momentum, nesterov=nesterov, weight_decay=weight_decay)
+
+
+def make_arch_optimizer(
+    params: Iterable[torch.nn.Parameter], lr: float, weight_decay: float = 1e-3
+) -> torch.optim.Adam:
+    """Adam over the architecture parameters (search.py:99-102)."""
+    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay)
 
 
 class TrainStep:
@@ -79,3 +90,84 @@ class TrainStep:
         if not weights_only:
             self.optimizer.load_state_dict(state["optimizer"])
             self.step = int(state["step"])
+
+
+class SearchSteps:
+    """The bilevel search steps of a supernet on one device (the JAX
+    package's single-device ``make_search_steps``): ``weight_step`` on a
+    batch of the first half updates the weights with ``w_optimizer`` at lr
+    = ``schedule(step)``; ``arch_step`` on a batch of the second half
+    updates ``alphas`` / ``betas`` with ``a_optimizer``. Both run the
+    supernet in training mode (its BN running statistics blend in either
+    step) and take the multi-exit loss, ``loss_reduce`` 'mean'
+    (search.py:190-194) or 'sum' (search_layer.py:187-196).
+
+    Each step differentiates its own parameters only: the others have
+    ``requires_grad`` off for its forward and backward, so no gradient is
+    computed for them and their optimizer never sees one; a parameter of
+    the step that the loss does not reach (an op of a genotype row past the
+    cell's B blocks) gets a zero gradient, as under jax.grad, so that the
+    decay still reaches it. ``step`` counts the weight updates from 0. Each
+    step returns its loss as a 0-d device tensor, so a loop of steps reads
+    nothing back."""
+
+    def __init__(
+        self,
+        model: torch.nn.Module,
+        w_optimizer: torch.optim.Optimizer,
+        a_optimizer: torch.optim.Optimizer,
+        schedule: Schedule,
+        class_weight: Optional[np.ndarray] = None,
+        loss_reduce: str = "mean",
+    ):
+        self.model = model
+        self.w_optimizer, self.a_optimizer = w_optimizer, a_optimizer
+        self.schedule = schedule
+        self.loss_reduce = loss_reduce
+        self.class_weight = None if class_weight is None else torch.as_tensor(
+            class_weight, dtype=torch.float32, device=next(model.parameters()).device)
+        self.w_params: List[torch.nn.Parameter] = list(model.weight_parameters())
+        self.a_params: List[torch.nn.Parameter] = list(model.arch_parameters())
+        self.step = 0
+
+    def _update(self, image, label, params, frozen, optimizer) -> torch.Tensor:
+        self.model.train()
+        for p in frozen:
+            p.requires_grad_(False)
+        try:
+            outs = self.model(image, class_leading=True)
+            loss = multi_exit_cross_entropy(outs, label, self.class_weight, reduce=self.loss_reduce)
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        finally:
+            for p in frozen:
+                p.requires_grad_(True)
+        for p in params:  # jax.grad gives a parameter the loss does not reach a zero
+            if p.grad is None:  # gradient, so the decay still reaches it
+                p.grad = torch.zeros_like(p)
+        optimizer.step()
+        return loss.detach()
+
+    def weight_step(self, image: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
+        """image (N, H, W, 3) float, label (N, H, W) int, on the model's device."""
+        lr = self.schedule(self.step)
+        for group in self.w_optimizer.param_groups:
+            group["lr"] = lr
+        loss = self._update(image, label, self.w_params, self.a_params, self.w_optimizer)
+        self.step += 1
+        return loss
+
+    def arch_step(self, image: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
+        return self._update(image, label, self.a_params, self.w_params, self.a_optimizer)
+
+    def state_dict(self) -> dict:
+        return {"model": self.model.state_dict(), "w_opt": self.w_optimizer.state_dict(),
+                "a_opt": self.a_optimizer.state_dict(), "step": self.step}
+
+    def load_state_dict(self, state: dict):
+        """Restore the weights, BN statistics and arch, both optimizers'
+        states and the step."""
+        self.model.load_state_dict(state["model"])
+        self.w_optimizer.load_state_dict(state["w_opt"])
+        self.a_optimizer.load_state_dict(state["a_opt"])
+        self.step = int(state["step"])

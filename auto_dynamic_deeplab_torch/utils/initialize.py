@@ -3,7 +3,8 @@
 The draws come from an explicit ``torch.Generator``; the distributions are
 the reference's: kaiming-normal (fan_in, gain sqrt 2) convs
 (modeling/ADD.py:491-500), lecun-normal dense layers (flax's default), zero
-biases, and BN at scale 1, bias 0, mean 0, var 1.
+biases, and BN at scale 1, bias 0, mean 0, var 1; a supernet's
+architecture parameters (alphas, betas) 1e-3 * normal (model_search.py).
 """
 from __future__ import annotations
 
@@ -31,6 +32,8 @@ def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
             if m.affine:
                 m.scale.fill_(1.0)
                 m.bias.zero_()
+    for p in getattr(module, "arch_parameters", list)():
+        p.normal_(0.0, 1e-3, generator=generator)
     return module
 
 

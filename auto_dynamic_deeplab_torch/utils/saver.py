@@ -18,6 +18,7 @@ import json
 import os
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 
@@ -84,6 +85,25 @@ class Saver:
                     previous.append(float(f.read()))
         if best_pred > max(previous):
             _save(state, os.path.join(self.experiment_dir, "best_model"))
+
+    def save_architecture(
+        self,
+        epoch: int,
+        network_path: np.ndarray,
+        betas: Optional[np.ndarray] = None,
+        genotype: Optional[np.ndarray] = None,
+    ) -> str:
+        """The decoded architecture of a search epoch (search.py:296-327):
+        ``arch_epoch_{epoch}/`` with network_path.npy, betas.npy and, for a
+        cell search, genotype.npy."""
+        d = os.path.join(self.experiment_dir, f"arch_epoch_{epoch}")
+        os.makedirs(d, exist_ok=True)
+        np.save(os.path.join(d, "network_path.npy"), np.asarray(network_path))
+        if betas is not None:
+            np.save(os.path.join(d, "betas.npy"), np.asarray(betas))
+        if genotype is not None:
+            np.save(os.path.join(d, "genotype.npy"), np.asarray(genotype))
+        return d
 
     def save_experiment_config(self, config: Dict[str, Any]):
         with open(os.path.join(self.experiment_dir, "parameters.txt"), "w") as f:

@@ -4,6 +4,7 @@
     python3 chip_smoke.py                   # every phase, one card
     python3 chip_smoke.py --phases 1,2,3,4  # a subset (device, K1, K2, K3-K6)
     python3 chip_smoke.py --phases 1,2,3,10,9  # training, with K1's and K2's checks
+    python3 chip_smoke.py --phases 1,11        # NAS search
 
 Phases, each printing JSON lines and raising on failure:
   1. device: the card, its power limit and the kernels' build time (every
@@ -73,12 +74,28 @@ Phases, each printing JSON lines and raising on failure:
      cli.evaluate --resume, whose per-exit mIoU must equal the trainer's
      last validation; cli.evaluate --dynamic --confidence edm --resume
      --edm-resume. Everything is written under a temporary directory;
+  11. NAS search (stage 1), run before the summary: one fp32 weight step
+     and one arch step (TF32 off) of a tiny ModelSearch and a tiny
+     ModelNetSearch on the card against the CPU (losses, weight and arch
+     gradients, the updated arch, with tests/test_torch_search.py's
+     tolerances); cli.search.main at the published net_supernet recipe
+     (12 layers, F=20, B=5, C=2, 321x321, batch 16: 3 weight and 3 arch
+     steps, validation of 12 images at batch 1), with its step times (the
+     median after the first), images/s, peak memory, a valid 12-layer
+     Viterbi path in arch_epoch_0 and betas that moved, then --resume
+     auto --epochs 2, which must start at epoch 1 with both optimizers'
+     states; the mixed supernet through cli.search --network supernet (12
+     layers, F=8, B=5, batch 2, --no-remat, two bilevel iterations: the
+     seed-2 half needs 4 images for one batch of 2) with its genotype;
+     cli.search_layer --network baseline_path (F=20, batch 16, two
+     iterations). No kernel lies on this path: every count must stay 0;
   9. the kernels summary line; each kernel's launches are those phases 6
      and 10 ran on the card: its wrapper count in the static, segment-loop
      and training runs, and in the fused runs the profiler's count of the
      warm-up and the replays (not the capture, which runs nothing);
-     ``train_path_launches`` are phase 10's alone. A run of a subset of
-     the phases lists the kernels whose checks (2-4) ran.
+     ``train_path_launches`` are phase 10's alone, ``search_path_launches``
+     phase 11's. A run of a subset of the phases lists the kernels whose
+     checks (2-4) ran.
 The last lines are the kernels summary, the card's name and power limit
 from nvidia-smi, and {"ok": true, "device": {...}}. Without a GPU, or
 without the port beside it, the script exits non-zero and prints no
@@ -1313,6 +1330,212 @@ def phase_train(ctx):
     ctx["train_launches"] = dict(total)
 
 
+SEARCH_HW = (321, 321)  # the reference's search crop (scripts/search_cityscapes.sh)
+SEARCH_BATCH = 16       # the published recipe's batch
+# the published recipe (scripts/search_cityscapes.sh: net_supernet, F=20, B=5,
+# C=2, cos lr 0.05 → 0.003, weight decay 8e-4, arch lr 1e-3) on 48 synthetic
+# images: 3 weight steps, 3 arch steps on the seed-2 half (24 images, one
+# batch, cycled), validation of 12 images at batch 1
+SEARCH_RECIPE = ["--network", "net_supernet", "--F", "20", "--B", "5", "--C", "2", "--batch-size", "16",
+                 "--synthetic-crop", "321", "321", "--synthetic-length", "48", "--epochs", "1",
+                 "--alpha-epoch", "0", "--lr", "0.05", "--min-lr", "0.003", "--arch-lr", "1e-3",
+                 "--weight-decay", "8e-4", "--arch-weight-decay", "1e-3", "--seed", "2", "--workers", "8"]
+# the tolerances of tests/test_torch_search.py: losses relative, arch
+# gradients L2 relative, the updated arch |Δ| on the components whose
+# decayed gradient is above SEARCH_GRAD_FLOOR of its largest (Adam's first
+# step is about -lr·sign(g): below that a component may flip its sign);
+# the weight gradients L2 relative 5e-4: cuDNN's fp32 algorithms sum in
+# another order than the CPU's (4.6e-5 and 9.6e-5 on the H100, where the
+# CPU and JAX agree within 1.0e-5)
+SEARCH_TOL = {"loss": 1e-5, "grad": 1e-4, "weight_grad": 5e-4, "arch": 1e-6}
+SEARCH_GRAD_FLOOR = 1e-2
+
+
+def _tiny_supernets(kind):
+    """A tiny supernet (4 layers, F=2, B=2, 5 classes) with seeded weights,
+    BN statistics and arch, one on the CPU and one on the card."""
+    from auto_dynamic_deeplab_torch.models import ModelNetSearch, ModelSearch
+    from auto_dynamic_deeplab_torch.utils.initialize import init_params, randomize_bn
+
+    out = []
+    for device in ("cpu", "cuda"):
+        kw = dict(num_layers=4, F=2, B=2, remat=False)
+        model = (ModelSearch(5, exit_layer=2, **kw) if kind == "mixed"
+                 else ModelNetSearch(5, [[1, 6], [0, 3], [4, 5], [2, 1]], C_index=(2,), **kw))
+        g = torch.Generator().manual_seed(7)
+        randomize_bn(init_params(model, g), g)
+        with torch.no_grad():
+            for p in model.arch_parameters():
+                p.normal_(0.0, 1.0, generator=g)
+        out.append(model.to(device))
+    return out
+
+
+def _rel_l2(a, ref) -> float:
+    a, ref = a.detach().double().cpu(), ref.detach().double().cpu()
+    return ((a - ref).norm() / ref.norm().clamp_min(1e-30)).item()
+
+
+def _search_parity(kind):
+    """fp32 (TF32 off): one weight step and one arch step of a tiny
+    supernet on the card against the same steps on the CPU."""
+    from auto_dynamic_deeplab_torch.train.schedules import lr_schedule
+    from auto_dynamic_deeplab_torch.train.step import SearchSteps, make_arch_optimizer, make_optimizer
+
+    g = torch.Generator().manual_seed(8)
+    image = torch.randn(4, 65, 65, 3, generator=g)
+    label = torch.randint(0, 5, (4, 65, 65), generator=g)
+    label[:, :2] = 255
+    models = _tiny_supernets(kind)
+    runs = []
+    for m in models:
+        dev = next(m.parameters()).device
+        steps = SearchSteps(m, make_optimizer(m.weight_parameters(), nesterov=False, weight_decay=8e-4),
+                            make_arch_optimizer(m.arch_parameters(), 1e-3), lr_schedule("cos", 0.05, 1, 2, min_lr=0.003))
+        w_loss = steps.weight_step(image.to(dev), label.to(dev)).item()
+        w_grads = {n: p.grad.clone() for n, p in m.named_parameters() if p.grad is not None}
+        arch0 = {n: p.detach().clone() for n, p in m.named_parameters() if n in ("alphas", "betas")}
+        a_loss = steps.arch_step(image.to(dev), label.to(dev)).item()
+        a_grads = {n: p.grad.clone() for n, p in m.named_parameters() if n in arch0}
+        arch1 = {n: p.detach().clone() for n, p in m.named_parameters() if n in arch0}
+        runs.append((w_loss, a_loss, w_grads, a_grads, arch0, arch1))
+    cpu, card = runs
+    row = {"kind": kind, "losses_cpu": cpu[:2], "losses_card": card[:2],
+           "loss_rel_err": [abs(a - b) / abs(b) for a, b in zip(card[:2], cpu[:2])],
+           "weight_grad_rel_l2": max(_rel_l2(card[2][n], g) for n, g in cpu[2].items()),
+           "arch_grad_rel_l2": {n: _rel_l2(card[3][n], g) for n, g in cpu[3].items()}}
+    arch_err = {}
+    for n, g in cpu[3].items():
+        decayed = g + 1e-3 * cpu[4][n]  # Adam's input: the gradient with the L2 term
+        big = decayed.abs() > SEARCH_GRAD_FLOOR * decayed.abs().max()
+        arch_err[n] = (card[5][n].cpu() - cpu[5][n])[big].abs().max().item()
+    row["arch_update_max_abs_err"] = arch_err
+    row["tol"] = SEARCH_TOL
+    ok = (max(row["loss_rel_err"]) <= SEARCH_TOL["loss"] and row["weight_grad_rel_l2"] <= SEARCH_TOL["weight_grad"]
+          and max(row["arch_grad_rel_l2"].values()) <= SEARCH_TOL["grad"]
+          and max(arch_err.values()) <= SEARCH_TOL["arch"])
+    if not ok:
+        raise AssertionError(f"search steps on the card and on the CPU disagree: {row}")
+    return row
+
+
+def _search_row(name, argv, result, wall, batch, counts):
+    """The run's step times (the median after the first step), images/s,
+    peak memory and launches; raises on a non-finite loss."""
+    w, a = result["step_ms"]["weight"], result["step_ms"]["arch"]
+    w_ms, a_ms = statistics.median(w[1:]), statistics.median(a[1:])
+    row = {"run": name, "argv": argv, "weight_step_ms_all": w, "arch_step_ms_all": a,
+           "weight_step_ms": w_ms, "arch_step_ms": a_ms,
+           # loader-A images searched a second: a bilevel iteration takes one
+           # weight step and one arch step of ``batch`` images each
+           "images_per_s": batch * 1e3 / (w_ms + a_ms),
+           "peak_gb": torch.cuda.max_memory_allocated() / 2**30, "train_loss": result["train_loss"],
+           "val_miou": result["miou"], "decoded_path": result["decoded"]["path"].tolist(), "wall_s": wall,
+           "launches": counts}
+    if not np.isfinite(result["train_loss"]):
+        raise AssertionError(f"{name}: non-finite loss: {row}")
+    return row
+
+
+def _check_path(path, layers):
+    """A Viterbi path: starts at level 0 or 1, moves one level at most a
+    layer, never deeper than the layer allows."""
+    path = [int(v) for v in path]
+    ok = (len(path) == layers and path[0] in (0, 1) and all(0 <= v <= min(3, i + 1) for i, v in enumerate(path))
+          and all(abs(b - a) <= 1 for a, b in zip(path, path[1:])))
+    if not ok:
+        raise AssertionError(f"not a {layers}-layer trellis path: {path}")
+
+
+def phase_search(ctx):
+    """Stage 1 on the card: the tiny supernets' steps against the CPU, then
+    cli.search at the published net_supernet recipe (and its resume), the
+    mixed supernet through cli.search, the baseline through
+    cli.search_layer."""
+    from auto_dynamic_deeplab_torch.cli import search, search_layer
+    from auto_dynamic_deeplab_torch.runtime import resolve_device
+    from auto_dynamic_deeplab_torch.utils.initialize import init_params
+    from auto_dynamic_deeplab_torch.utils.saver import restore_checkpoint
+
+    if "smi" not in ctx:
+        ctx["smi"] = nvidia_smi_line()
+    resolve_device("cuda")  # TF32 off
+    for kind in ("mixed", "fixed"):
+        emit({"phase": "search", "check": "card_vs_cpu_steps", **_search_parity(kind)})
+
+    kernels = _all_kernels()
+    total = Counter()
+
+    def drive(name, main, argv, batch):
+        for f in kernels.values():
+            f.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result = main(argv)
+        wall = time.perf_counter() - t0
+        counts = _counts(kernels)
+        total.update(counts)
+        row = _search_row(name, argv, result, wall, batch, counts)
+        row["nvidia_smi"] = ctx["smi"]
+        return result, row
+
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = SEARCH_RECIPE + ["--run-dir", tmp, "--device", "cuda"]
+        result, row = drive("cli.search net_supernet (published recipe)", search.main, argv, SEARCH_BATCH)
+        exp = Path(result["experiment_dir"])
+        arch = exp / "arch_epoch_0"
+        path = np.load(arch / "network_path.npy")
+        _check_path(path, 12)
+        # the CLI's seeded initial betas, rebuilt on the CPU
+        args = search.build_parser().parse_args(argv)
+        init = init_params(search.build_model(args, 19, "net_supernet", (5,)), torch.Generator().manual_seed(2))
+        moved = float(np.abs(np.load(arch / "betas.npy") - init.betas.detach().numpy()).max())
+        row.update(arch_epoch_0_path=path.tolist(), betas_max_abs_move=moved)
+        del init
+        if not moved > 1e-4:
+            raise AssertionError(f"the betas did not move: {row}")
+        emit({"phase": "search", **row})
+
+        result, row = drive("cli.search net_supernet --resume auto --epochs 2", search.main,
+                            argv + ["--resume", "auto", "--epochs", "2"], SEARCH_BATCH)
+        state, meta = restore_checkpoint(str(Path(result["experiment_dir"]) / "checkpoint"))
+        a_steps = sorted({int(s["step"]) for s in state["a_opt"]["state"].values()})
+        row.update(start_epoch=result["start_epoch"], checkpoint_epoch=meta["epoch"], weight_updates=state["step"],
+                   arch_adam_steps=a_steps, momentum_buffers=len(state["w_opt"]["state"]))
+        _check_path(np.load(Path(result["experiment_dir"]) / "arch_epoch_1" / "network_path.npy"), 12)
+        if not (result["start_epoch"] == 1 and meta["epoch"] == 1 and state["step"] == 6 and a_steps == [6]):
+            raise AssertionError(f"resume: {row}")
+        emit({"phase": "search", **row})
+
+        # the mixed supernet at 12 layers, F=8, B=5, batch 2: 4 images give
+        # two bilevel iterations (loader B, the seed-2 half, needs 2); it
+        # runs without remat (the path the recipe's run does not take),
+        # which also takes a quarter off its host-bound steps
+        mixed = ["--network", "supernet", "--F", "8", "--B", "5", "--batch-size", "2", "--synthetic-crop", "321", "321",
+                 "--synthetic-length", "4", "--epochs", "1", "--alpha-epoch", "0", "--lr", "0.05", "--min-lr",
+                 "0.003", "--arch-lr", "1e-3", "--weight-decay", "8e-4", "--seed", "2", "--workers", "8",
+                 "--no-remat", "--run-dir", tmp, "--device", "cuda"]
+        result, row = drive("cli.search supernet (mixed cells, F=8, --no-remat)", search.main, mixed, 2)
+        genotype = np.load(Path(result["experiment_dir"]) / "arch_epoch_0" / "genotype.npy")
+        row["genotype"] = genotype.tolist()
+        _check_path(result["decoded"]["path"], 12)
+        if genotype.shape != (10, 2) or not ((genotype[:, 1] >= 0) & (genotype[:, 1] < 8)).all():
+            raise AssertionError(f"genotype: {row}")
+        emit({"phase": "search", **row})
+
+        layer = ["--network", "baseline_path", "--F", "20", "--B", "5", "--batch-size", "16", "--synthetic-crop",
+                 "321", "321", "--synthetic-length", "32", "--epochs", "1", "--alpha-epoch", "0", "--lr", "0.05",
+                 "--min-lr", "0.003", "--arch-lr", "1e-3", "--weight-decay", "8e-4", "--seed", "2",
+                 "--workers", "8", "--run-dir", tmp, "--device", "cuda"]
+        result, row = drive("cli.search_layer baseline_path", search_layer.main, layer, SEARCH_BATCH)
+        _check_path(result["decoded"]["path"], 12)
+        emit({"phase": "search", **row})
+    ctx["search_launches"] = dict(total)
+    if any(total.values()):
+        raise AssertionError(f"a kernel ran on the search path, which has none: {dict(total)}")
+
+
 def phase_kernels(ctx):
     """The kernels line; a run of a subset of the phases lists the kernels
     whose checks (phases 2-4) ran."""
@@ -1323,6 +1546,7 @@ def phase_kernels(ctx):
         return {
             "name": name, "route": route, "source": source, "replaces": replaces,
             "launches": launches.get(name, 0), "train_path_launches": ctx.get("train_launches", {}).get(name, 0),
+            "search_path_launches": ctx.get("search_launches", {}).get(name, 0),
             "max_abs_err": main["max_abs_err"],
             "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main.get("library_ms"), "dtype": main["dtype"],
@@ -1351,12 +1575,13 @@ def phase_kernels(ctx):
 PHASES = {
     1: phase_device, 2: phase_k1, 3: phase_k2, 4: phase_cells, 5: phase_model,
     6: phase_main_path, 7: phase_engine, 8: phase_trained, 9: phase_kernels, 10: phase_train,
+    11: phase_search,
 }
 
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--phases", default="1,2,3,4,5,6,7,8,10,9")
+    p.add_argument("--phases", default="1,2,3,4,5,6,7,8,10,11,9")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: no GPU", file=sys.stderr)

@@ -1,4 +1,5 @@
-"""K1-K6 against their plain versions on the card.
+"""K1-K6 against their plain versions on the card; one search iteration
+against the CPU.
 
 This file imports neither jax nor the JAX package, so it also runs where
 only the port's dependencies are installed:
@@ -729,3 +730,59 @@ def test_batchnorm_train_on_gpu_matches_cpu(shape, dtype):
     tol = (1e-5 if shape[0] > 1 else 2e-4) if dtype == torch.float32 else 2.0 ** -7
     for name, a, b in zip(("y", "dx", "dscale", "dbias", "mean", "var"), outs[1], outs[0]):
         assert (a - b).abs().max().item() <= tol * max(1.0, b.abs().max().item()), name
+
+
+@needs_gpu
+def test_search_iteration_on_gpu_matches_cpu():
+    """One bilevel iteration (a weight step, then an arch step) of a tiny
+    ModelNetSearch (4 layers, F=2, B=2, 5 classes, batch 4 at 65x65, fp32,
+    TF32 off) on the card against the CPU, from the same weights,
+    statistics and arch: the losses ≤ 1e-5 relative, the arch gradient ≤
+    1e-4 (L2, relative, as tests/test_torch_search.py holds it to JAX), the
+    weight gradients ≤ 5e-4 (cuDNN's fp32 algorithms sum in another order
+    than the CPU's: chip_smoke.py phase 11 reads 4.6e-5 and 9.6e-5 on the
+    H100, where the CPU and JAX agree within 1.0e-5), the weights and
+    statistics after the iteration |Δ| ≤
+    1e-5·max(1, max|ref|) per tensor, and the arch after Adam's first step
+    |Δ| ≤ 1e-6 where its decayed gradient exceeds 1e-2 of the largest
+    (Adam's first step is about -lr·sign(g))."""
+    from auto_dynamic_deeplab_torch.models import ModelNetSearch
+    from auto_dynamic_deeplab_torch.runtime import resolve_device
+    from auto_dynamic_deeplab_torch.train.schedules import lr_schedule
+    from auto_dynamic_deeplab_torch.train.step import SearchSteps, make_arch_optimizer, make_optimizer
+
+    resolve_device("cuda")  # TF32 off
+    g = torch.Generator().manual_seed(0)
+    image = torch.randn(4, 65, 65, 3, generator=g)
+    label = torch.randint(0, 5, (4, 65, 65), generator=g)
+    label[:, :2] = 255
+    runs = []
+    for device in ("cpu", "cuda"):
+        model = ModelNetSearch(5, [[1, 6], [0, 3], [4, 5], [2, 1]], num_layers=4, F=2, B=2, C_index=(2,))
+        randomize_bn(init_params(model, torch.Generator().manual_seed(1)), torch.Generator().manual_seed(2))
+        with torch.no_grad():
+            model.betas.normal_(0.0, 1.0, generator=torch.Generator().manual_seed(3))
+        model.to(device)
+        steps = SearchSteps(model, make_optimizer(model.weight_parameters(), nesterov=False, weight_decay=8e-4),
+                            make_arch_optimizer(model.arch_parameters(), 1e-3),
+                            lr_schedule("cos", 0.05, 1, 2, min_lr=0.003))
+        w_loss = steps.weight_step(image.to(device), label.to(device)).item()
+        w_grads = {n: p.grad.cpu().double() for n, p in model.named_parameters() if n != "betas"}
+        beta0 = model.betas.detach().cpu().double().clone()
+        a_loss = steps.arch_step(image.to(device), label.to(device)).item()
+        runs.append((w_loss, a_loss, w_grads, model.betas.grad.cpu().double(), beta0, model))
+    (w0, a0, wg0, bg0, beta0, cpu), (w1, a1, wg1, bg1, _, card) = runs
+    assert abs(w1 - w0) <= 1e-5 * w0 and abs(a1 - a0) <= 1e-5 * a0, (w0, w1, a0, a1)
+    num = sum(float(((wg1[k] - wg0[k]) ** 2).sum()) for k in wg0)
+    assert (num / sum(float((v ** 2).sum()) for v in wg0.values())) ** 0.5 <= 5e-4
+    assert ((bg1 - bg0).norm() / bg0.norm()).item() <= 1e-4
+    want = cpu.state_dict()
+    for name, t in card.state_dict().items():
+        if name == "betas":
+            decayed = (bg0 + 1e-3 * beta0).abs()
+            big = decayed > 1e-2 * decayed.max()
+            err = (t.cpu().double() - want[name].double())[big].abs().max().item()
+            assert big.sum() >= 8 and err <= 1e-6, err
+            continue
+        err = (t.cpu().double() - want[name].double()).abs().max().item()
+        assert err <= 1e-5 * max(1.0, want[name].abs().max().item()), (name, err)

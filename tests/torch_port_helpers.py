@@ -13,7 +13,9 @@ from auto_dynamic_deeplab_torch.bridge import load_jax_variables
 def flax_variables(module, *args, seed=0, **kwargs):
     """{"params", "batch_stats"} of ``module.init(key, *args, **kwargs)``
     filled from a numpy seed: kaiming-normal kernels, random biases, and
-    non-trivial BN scale/bias/mean/var so that BN is really exercised."""
+    non-trivial BN scale/bias/mean/var so that BN is really exercised; a
+    supernet's "arch" (alphas, betas) standard normal, drawn after the
+    rest, so that its softmaxes are far from uniform."""
     shapes = jax.eval_shape(lambda: module.init(jax.random.PRNGKey(0), *args, **kwargs))
     rng = np.random.RandomState(seed)
 
@@ -26,6 +28,8 @@ def flax_variables(module, *args, seed=0, **kwargs):
             shape = v.shape
             if collection == "batch_stats":
                 a = rng.normal(0, 0.5, shape) if k == "mean" else rng.uniform(0.5, 2.0, shape)
+            elif collection == "arch":
+                a = rng.normal(0, 1.0, shape)
             elif k == "kernel":
                 fan_in = int(np.prod(shape[:-1]))
                 a = rng.normal(0, np.sqrt((2.0 if len(shape) == 4 else 1.0) / fan_in), shape)
@@ -36,7 +40,7 @@ def flax_variables(module, *args, seed=0, **kwargs):
             out[k] = a.astype(np.float32)
         return out
 
-    return {c: fill(shapes[c], c) for c in ("params", "batch_stats") if c in shapes}
+    return {c: fill(shapes[c], c) for c in ("params", "batch_stats", "arch") if c in shapes}
 
 
 def port_module(module, variables):
