@@ -11,6 +11,8 @@ from ..nas.genotypes import AUTODEEPLAB_GENOTYPE, NETWORK_ARCH, SEARCH_C_INDEX
 def add_common_args(p: argparse.ArgumentParser):
     p.add_argument("--dataset", default="synthetic",
                    choices=["cityscapes", "cityscapes_edm", "pascal", "synthetic"])
+    p.add_argument("--data-root", default=None,
+                   help="the dataset's root (default: $CITYSCAPES_ROOT or $PASCAL_ROOT)")
     p.add_argument("--batch-size", type=int, default=4)
     p.add_argument("--test-batch-size", type=int, default=1)
     p.add_argument("--workers", type=int, default=4)
@@ -23,8 +25,7 @@ def add_common_args(p: argparse.ArgumentParser):
     p.add_argument("--sync-bn", action="store_true",
                    help="cross-replica BN (not ported yet: ROADMAP Queue 1 item 12)")
     p.add_argument("--crop-size", type=int, nargs=2, default=(769, 769),
-                   help="train crop of the file datasets; the synthetic set's "
-                   "images are --synthetic-crop")
+                   help="train crop of Cityscapes; the synthetic set's images are --synthetic-crop")
     p.add_argument("--synthetic-crop", type=int, nargs=2, default=(65, 65))
     p.add_argument("--synthetic-length", type=int, default=64)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
@@ -51,9 +52,4 @@ def reject_unported(args):
     if args.sync_bn:
         raise NotImplementedError(
             "--sync-bn: cross-replica BN comes with the data-parallel trainer (ROADMAP Queue 1 item 12)"
-        )
-    if getattr(args, "device_augment", False):
-        raise NotImplementedError(
-            "--device-augment: the on-device input pipeline comes with the file loaders "
-            "(ROADMAP Queue 1 item 8)"
         )

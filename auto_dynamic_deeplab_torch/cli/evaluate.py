@@ -54,7 +54,7 @@ def build(args):
     path, C_index, low_level_layer, genotype = resolve_arch(args, args.genotype)
 
     _, val_loader, nclass = make_data_loader(
-        args.dataset, args.batch_size, args.test_batch_size,
+        args.dataset, args.batch_size, args.test_batch_size, root=args.data_root,
         num_workers=args.workers, seed=args.seed,
         synthetic_length=args.synthetic_length,
         synthetic_crop=tuple(args.synthetic_crop),

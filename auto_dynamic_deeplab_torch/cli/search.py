@@ -90,8 +90,9 @@ def run(args, network: str, exits, loss_reduce: str, checkname: str, resume=None
     reject_unported(args)
     device = resolve_device(args.device)
     loader_a, loader_b, val_loader, nclass = make_data_loader(
-        args.dataset, args.batch_size, args.test_batch_size, num_workers=args.workers, seed=args.seed,
-        synthetic_length=args.synthetic_length, synthetic_crop=tuple(args.synthetic_crop), supernet=True,
+        args.dataset, args.batch_size, args.test_batch_size, root=args.data_root, supernet=True,
+        num_workers=args.workers, seed=args.seed,
+        synthetic_length=args.synthetic_length, synthetic_crop=tuple(args.synthetic_crop),
     )
     model = init_params(build_model(args, nclass, network, exits), torch.Generator().manual_seed(args.seed))
     cfg = SearchConfig(

@@ -6,6 +6,12 @@ one device: the GPU by default, the CPU with --device cpu.
         --synthetic-crop 769 769 --synthetic-length 16 [--bf16] [--remat]
     python -m auto_dynamic_deeplab_torch.cli.train --device cpu --F 4 \\
         --synthetic-crop 33 65 --synthetic-length 8 --batch-size 2 --epochs 2 --eval-interval 1
+    python -m auto_dynamic_deeplab_torch.cli.train --dataset cityscapes \\
+        --data-root /data/cityscapes [--device-augment] [--bf16]
+
+--data-root (default $CITYSCAPES_ROOT or $PASCAL_ROOT) holds the dataset;
+--device-augment ships decode-only uint8 batches and flips, scales, crops
+and normalizes them on the device (data/device_transforms.py).
 
 Checkpoints go to {--run-dir}/{--dataset}/{--checkname}/experiment_N.
 """
@@ -45,7 +51,8 @@ def build_parser():
                         "preemption recovery), a checkpoint file or its experiment dir")
     p.add_argument("--ft", action="store_true", help="fine-tune: load weights only, restart the schedule")
     p.add_argument("--device-augment", action="store_true",
-                   help="on-device input pipeline (not ported yet: ROADMAP Queue 1 item 8)")
+                   help="on-device input pipeline: the loader ships decode-only uint8; flip, "
+                        "scale, crop and normalize run on the device (data/device_transforms.py)")
     return p
 
 
@@ -56,10 +63,11 @@ def main(argv=None):
     path, C_index, low_level_layer, genotype = resolve_arch(args, args.genotype)
 
     train_loader, val_loader, nclass = make_data_loader(
-        args.dataset, args.batch_size, args.test_batch_size,
-        num_workers=args.workers, seed=args.seed,
+        args.dataset, args.batch_size, args.test_batch_size, root=args.data_root,
+        num_workers=args.workers, seed=args.seed, crop_size=tuple(args.crop_size),
         synthetic_length=args.synthetic_length,
         synthetic_crop=tuple(args.synthetic_crop),
+        raw_train=args.device_augment,
     )
 
     model_cls = ADD if args.network == "ADD" else BaselineModel
@@ -88,8 +96,10 @@ def main(argv=None):
         checkname=args.checkname or f"{args.network}_C{args.C}_F{args.F}",
         resume=args.resume,
         ft=args.ft,
+        device_augment=args.device_augment,
+        crop_size=tuple(args.crop_size) if args.device_augment else None,
     )
-    trainer = Trainer(model, train_loader, val_loader, cfg, class_weight=weight, device=device)
+    trainer = Trainer(model, train_loader, val_loader, cfg, class_weight=weight, device=device, seed=args.seed)
     result = trainer.fit()
     result["experiment_dir"] = trainer.saver.experiment_dir
     print(json.dumps({k: v for k, v in result.items() if k != "step_ms"}, default=float))

@@ -47,7 +47,8 @@ def main(argv=None):
 
     # feature generation at batch 1 over the train images
     train_loader, _, nclass = make_data_loader(
-        args.dataset, 1, num_workers=args.workers, seed=args.seed,
+        args.dataset, 1, root=args.data_root, edm=args.dataset.startswith("cityscapes"),
+        num_workers=args.workers, seed=args.seed,
         synthetic_length=args.synthetic_length,
         synthetic_crop=tuple(args.synthetic_crop),
     )

@@ -16,7 +16,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -51,6 +51,11 @@ class TrainConfig:
     # with resume: the weights only, the schedule restarts from epoch 0
     # (the reference's --ft, train.py:212-214)
     ft: bool = False
+    # the train loader yields raw uint8 batches ({"image_u8", "label_u8"}),
+    # flipped, scaled, cropped to crop_size and normalized on the device
+    # (data/device_transforms.py)
+    device_augment: bool = False
+    crop_size: Optional[Tuple[int, int]] = None
 
 
 class _StepClock:
@@ -81,7 +86,8 @@ class _StepClock:
 
 class Trainer:
     """Trains ``model`` (initialized by the caller) on ``device`` (cuda
-    unless the caller asks for the CPU; raises without a GPU)."""
+    unless the caller asks for the CPU; raises without a GPU). ``seed``
+    seeds the device augmentation's draws."""
 
     def __init__(
         self,
@@ -91,8 +97,16 @@ class Trainer:
         config: TrainConfig,
         class_weight: Optional[np.ndarray] = None,
         device="cuda",
+        seed: int = 0,
     ):
+        if config.device_augment and config.crop_size is None:
+            raise ValueError(
+                "device_augment=True requires crop_size (the augmented shape; raw uint8 batches "
+                "carry the source canvas shape)"
+            )
         self.device = resolve_device(device)
+        self._seed = seed
+        self._augment = None  # built from the first raw batch
         self.model = model.to(self.device)
         self.train_loader = train_loader
         self.val_loader = val_loader
@@ -134,14 +148,31 @@ class Trainer:
             self.start_epoch = int(meta.get("epoch", -1)) + 1
             self.best_pred = float(meta.get("best_pred", 0.0))
 
+    def _device_augment(self, batch, epoch: int, b: int):
+        """A raw uint8 batch → (image, label) augmented on the device. Sample
+        k of batch b draws from ``RandomState(seed·7919 + epoch·613 + b·127
+        + k)``, so the draws are fixed by (seed, epoch, batch)."""
+        from ..data.device_transforms import augment_batch, make_train_augment
+
+        src_hw = batch["image_u8"].shape[1:3]
+        if self._augment is None:
+            self._augment = make_train_augment(src_hw, self.config.crop_size, device=self.device)
+        base = self._seed * 7919 + epoch * 613
+        rngs = [np.random.RandomState(base + b * 127 + k) for k in range(batch["image_u8"].shape[0])]
+        return augment_batch(self._augment, batch["image_u8"], batch["label_u8"], src_hw,
+                             self.config.crop_size, rngs=rngs)
+
     def training(self, epoch: int) -> float:
         self.train_loader.set_epoch(epoch)
         losses = []
         clock = _StepClock(self.device)
         clock.mark()
-        for batch in self.train_loader:
-            image = torch.as_tensor(batch["image"]).to(self.device)
-            label = torch.as_tensor(batch["label"]).to(self.device)
+        for b, batch in enumerate(self.train_loader):
+            if self.config.device_augment and "image_u8" in batch:
+                image, label = self._device_augment(batch, epoch, b)
+            else:
+                image = torch.as_tensor(batch["image"]).to(self.device)
+                label = torch.as_tensor(batch["label"]).to(self.device)
             losses.append(self.train_step(image, label))
             clock.mark()
         train_loss = float(torch.stack(losses).mean()) if losses else float("nan")

@@ -1,9 +1,10 @@
 """Seeded parameter initialization (no weights are ever downloaded).
 
 The draws come from an explicit ``torch.Generator``; the distributions are
-the reference's: kaiming-normal (fan_in, gain sqrt 2) convs
-(modeling/ADD.py:491-500), lecun-normal dense layers (flax's default), zero
-biases, and BN at scale 1, bias 0, mean 0, var 1; a supernet's
+the reference's: kaiming-normal (fan_in, gain sqrt 2, untruncated) convs
+(modeling/ADD.py:491-500), dense layers by flax's default ``lecun_normal``
+(a normal truncated at ±2σ, σ widened by 1/0.87962566 so that the
+variance stays 1/fan_in), zero biases, and BN at scale 1, bias 0, mean 0, var 1; a supernet's
 architecture parameters (alphas, betas) 1e-3 * normal (model_search.py).
 """
 from __future__ import annotations
@@ -16,14 +17,21 @@ from torch import nn
 from ..ops.norm import BatchNorm
 from ..ops.primitives import Conv2d, Dense
 
+# the standard deviation of a unit normal truncated at ±2 (flax's
+# variance_scaling divides by it so that the draw keeps the asked variance)
+TRUNCATED_STD = 0.87962566103423978
+
 
 @torch.no_grad()
 def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
     for m in module.modules():
         if isinstance(m, (Conv2d, Dense)):
             fan_in = m.kernel[0].numel()
-            gain = 2.0 if isinstance(m, Conv2d) else 1.0
-            m.kernel.normal_(0.0, math.sqrt(gain / fan_in), generator=generator)
+            if isinstance(m, Conv2d):
+                m.kernel.normal_(0.0, math.sqrt(2.0 / fan_in), generator=generator)
+            else:
+                std = math.sqrt(1.0 / fan_in) / TRUNCATED_STD
+                nn.init.trunc_normal_(m.kernel, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, BatchNorm):

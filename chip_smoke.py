@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases 1,2,3,4  # a subset (device, K1, K2, K3-K6)
     python3 chip_smoke.py --phases 1,2,3,10,9  # training, with K1's and K2's checks
     python3 chip_smoke.py --phases 1,11        # NAS search
+    python3 chip_smoke.py --phases 1,2,3,12,9  # the input pipeline, with K1's and K2's checks
 
 Phases, each printing JSON lines and raising on failure:
   1. device: the card, its power limit and the kernels' build time (every
@@ -89,13 +90,32 @@ Phases, each printing JSON lines and raising on failure:
      seed-2 half needs 4 images for one batch of 2) with its genotype;
      cli.search_layer --network baseline_path (F=20, batch 16, two
      iterations). No kernel lies on this path: every count must stay 0;
-  9. the kernels summary line; each kernel's launches are those phases 6
-     and 10 ran on the card: its wrapper count in the static, segment-loop
-     and training runs, and in the fused runs the profiler's count of the
-     warm-up and the replays (not the capture, which runs nothing);
-     ``train_path_launches`` are phase 10's alone, ``search_path_launches``
-     phase 11's. A run of a subset of the phases lists the kernels whose
-     checks (2-4) ran.
+  12. the file datasets and the input pipeline, run before the summary:
+     the installation (Pillow's version or null, g++'s, the native C++
+     augmentation library built and loaded; the phase fails without
+     Pillow, which decodes the frames); a Cityscapes-layout PNG tree
+     of 16 seeded 1024x2048 train frames over two cities and 2 val frames
+     in a temporary directory; the device augment on the card against the
+     CPU at 769x769 (batch 4, scales 0.5-2, both flips), the eval
+     preprocess at 1025x2049, the native engine against numpy; cli.train
+     --dataset cityscapes --data-root at the flagship's 769x769, batch 4,
+     with and without --device-augment, fp32 and bf16 (2 epochs of 4
+     steps, validation of the 2 val frames at 1025x2049: one K1 an image,
+     one K2 an exit), in turns (host, device, device, host), with the
+     median step ms of each route over its two runs; the host loader
+     alone at 4 workers (native engine, PIL, decode only) and the device
+     augment alone (upload and augment, CUDA events); cli.search on the
+     two_train_seg halves at the net_supernet recipe, batch 4 (no kernel);
+     cli.train_edm --dataset cityscapes_edm (one K1 and one K2 a frame) and
+     cli.evaluate --dynamic --confidence edm on the val frames;
+  9. the kernels summary line; each kernel's launches are those phases 6,
+     10 and 12 ran on the card: its wrapper count in the static,
+     segment-loop and training runs, and in the fused runs the profiler's
+     count of the warm-up and the replays (not the capture, which runs
+     nothing); ``train_path_launches`` are phase 10's alone,
+     ``search_path_launches`` phase 11's, ``data_path_launches`` phase
+     12's. A run of a subset of the phases lists the kernels whose checks
+     (2-4) ran.
 The last lines are the kernels summary, the card's name and power limit
 from nvidia-smi, and {"ok": true, "device": {...}}. Without a GPU, or
 without the port beside it, the script exits non-zero and prints no
@@ -106,6 +126,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -1536,6 +1557,270 @@ def phase_search(ctx):
         raise AssertionError(f"a kernel ran on the search path, which has none: {dict(total)}")
 
 
+CITY_HW = (1024, 2048)  # a Cityscapes frame
+CITY_TRAIN = 16         # train frames over two cities: 4 steps of batch 4, two search halves of 8
+CITY_VAL = 2            # val frames, validated at 1025x2049
+CITY_SCALES = (0.5, 1.0, 1.7, 2.0)
+# the flagship at its published train crop and batch, 2 epochs of 4 steps,
+# validation at 1025x2049 after the last epoch (one K1 an image, one K2 an exit)
+CITY_TRAIN_ARGV = ["--dataset", "cityscapes", "--crop-size", "769", "769", "--batch-size", "4", "--epochs", "2",
+                   "--eval-interval", "2", "--test-batch-size", "1", "--workers", "4"]
+
+
+def _city_frame(rng, hw=CITY_HW):
+    """A seeded frame: a smooth uint8 image with noise, and raw label ids
+    (VALID_CLASSES by the same field, 3% void ids)."""
+    from auto_dynamic_deeplab_torch.data.cityscapes import VALID_CLASSES
+
+    h, w = hw
+    yy = np.linspace(0.0, 1.0, h, dtype=np.float32)[:, None]
+    xx = np.linspace(0.0, 1.0, w, dtype=np.float32)[None]
+    field = sum(np.sin(fy * yy * 6.28 + fx * xx * 6.28 + ph) for fy, fx, ph in rng.uniform(0.5, 6.0, (3, 3)))
+    colour = rng.uniform(20, 60, 3).astype(np.float32)
+    image = 128 + field[..., None] * colour + rng.randint(-8, 9, (h, w, 3)).astype(np.float32)
+    classes = ((field - field.min()) / (np.ptp(field) + 1e-6) * (len(VALID_CLASSES) - 1e-3)).astype(np.int64)
+    raw = np.asarray(VALID_CLASSES, np.uint8)[classes]
+    void = rng.rand(h, w) < 0.03
+    raw[void] = rng.choice([0, 1, 4, 6], size=int(void.sum()))
+    return np.clip(image, 0, 255).astype(np.uint8), raw
+
+
+def _city_frames():
+    rng = np.random.RandomState(12)
+    return [("train", f"city{k % 2}", k // 2, *_city_frame(rng)) for k in range(CITY_TRAIN)] + \
+        [("val", "city2", k, *_city_frame(rng)) for k in range(CITY_VAL)]
+
+
+def _write_city_tree(root: Path, frames):
+    """The Cityscapes layout: leftImg8bit/<split>/<city>/*_leftImg8bit.png
+    and gtFine/<split>/<city>/*_gtFine_labelIds.png."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    def write(frame):
+        split, city, k, image, raw = frame
+        name = f"{city}_{k:06d}_000019"
+        for kind, suffix, a in (("leftImg8bit", "leftImg8bit", image), ("gtFine", "gtFine_labelIds", raw)):
+            d = root / kind / split / city
+            d.mkdir(parents=True, exist_ok=True)
+            Image.fromarray(a).save(d / f"{name}_{suffix}.png")
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write, frames))
+
+
+def _augment_inputs(rng):
+    """Batch 4 at 769x769 from 1024x2048: scales CITY_SCALES, flips off/on."""
+    frames = [_city_frame(rng) for _ in range(4)]
+    from auto_dynamic_deeplab_torch.data.cityscapes import encode_segmap
+
+    images = np.stack([f[0] for f in frames])
+    masks = np.stack([encode_segmap(f[1]) for f in frames])
+    scales = np.float32(CITY_SCALES)
+    flips = np.array([False, True, False, True])
+    offs = [[rng.randint(0, max(int(round(n * s)), c) - c + 1) for s in scales] for n, c in zip(CITY_HW, TRAIN_HW)]
+    return images, masks, scales, flips, np.int32(offs[0]), np.int32(offs[1])
+
+
+def _pipeline_parity():
+    """The device augment on the card against the CPU; the eval preprocess
+    on the card against the CPU; the native engine against numpy and PIL
+    at scale 1."""
+    from auto_dynamic_deeplab_torch.data import native
+    from auto_dynamic_deeplab_torch.data import transforms as T
+    from auto_dynamic_deeplab_torch.data.device_transforms import make_eval_preprocess, make_train_augment
+
+    rng = np.random.RandomState(13)
+    args = _augment_inputs(rng)
+    card = make_train_augment(CITY_HW, TRAIN_HW, device="cuda")(*args)
+    cpu = make_train_augment(CITY_HW, TRAIN_HW, device="cpu")(*args)
+    img_err = (card[0].cpu() - cpu[0]).abs().max().item()
+    img_tol = 1e-5 * max(1.0, cpu[0].abs().max().item())
+    row = {"check": "device_augment_card_vs_cpu", "hw": list(CITY_HW), "crop": list(TRAIN_HW),
+           "scales": list(CITY_SCALES), "flips": args[3].tolist(), "image_max_abs_err": img_err, "image_tol": img_tol,
+           "labels_equal": bool(torch.equal(card[1].cpu(), cpu[1])),
+           "eval_equal": all(torch.equal(a.cpu(), b) for a, b in zip(
+               make_eval_preprocess(CITY_HW, FULL_HW, device="cuda")(args[0][:2], args[1][:2]),
+               make_eval_preprocess(CITY_HW, FULL_HW, device="cpu")(args[0][:2], args[1][:2])))}
+    # the native engine against numpy: labels equal, images within 1e-5
+    # (the engine multiplies by 1/std where numpy divides)
+    image, mask = args[0][0], args[1][0]
+    nat = native.eval_full_native(image, mask, FULL_HW, T.CITYSCAPES_MEAN, T.CITYSCAPES_STD)
+    ref = T.full_image_eval_preprocess(image, mask, FULL_HW)
+    errs = {"eval": (float(np.abs(nat[0] - ref[0]).max()), bool(np.array_equal(nat[1], ref[1])))}
+    from PIL import Image
+
+    im, mk = Image.fromarray(image), Image.fromarray(mask)
+    nat = T.train_preprocess_native(im, mk, TRAIN_HW, scale=1.0, rng=np.random.RandomState(3))
+    ref = T.train_preprocess(im, mk, TRAIN_HW, scale=1.0, rng=np.random.RandomState(3))
+    errs["train_scale1"] = (float(np.abs(nat[0] - ref[0]).max()), bool(np.array_equal(nat[1], ref[1])))
+    row["native_vs_numpy"] = {k: {"image_max_abs_err": e, "labels_equal": eq} for k, (e, eq) in errs.items()}
+    if not (img_err <= img_tol and row["labels_equal"] and row["eval_equal"]
+            and all(e <= 1e-5 and eq for e, eq in errs.values())):
+        raise AssertionError(f"input pipeline parity: {row}")
+    return row
+
+
+def _loader_rate(dataset, batch=4, workers=4):
+    """One pass of the host loader over ``dataset``: images/s and ms a batch."""
+    from auto_dynamic_deeplab_torch.data import DataLoader
+
+    loader = DataLoader(dataset, batch, num_workers=workers)
+    t0 = time.perf_counter()
+    n = sum(len(b[next(iter(b))]) for b in loader)
+    dt = time.perf_counter() - t0
+    return {"images": n, "images_per_s": n / dt, "ms_per_batch": dt * 1e3 * batch / n}
+
+
+def _device_augment_ms(runs=10):
+    """CUDA-event ms a batch of 4 (1024x2048 uint8 → 769x769): the upload
+    of the pixels and labels, and the augment on the card."""
+    from auto_dynamic_deeplab_torch.data.device_transforms import make_train_augment
+
+    args = _augment_inputs(np.random.RandomState(14))
+    fn = make_train_augment(CITY_HW, TRAIN_HW, device="cuda")
+    on_card = [torch.as_tensor(a).cuda() for a in args]
+    upload = cuda_ms(lambda: (torch.as_tensor(args[0]).cuda(), torch.as_tensor(args[1]).cuda()), runs=runs)
+    augment = cuda_ms(lambda: fn(*on_card), runs=runs)
+    return {"batch": 4, "upload_ms": upload, "augment_ms": augment,
+            "upload_bytes": int(args[0].nbytes + args[1].nbytes)}
+
+
+def phase_input_pipeline(ctx):
+    """The file datasets and the input pipeline at Cityscapes size (the
+    tree written under a temporary directory): the installation, parity
+    on the card, cli.train with and without --device-augment (fp32, bf16),
+    the host loader alone, the device augment alone, cli.search on the
+    search split, cli.train_edm and cli.evaluate --dynamic edm on it."""
+    import importlib.util
+
+    from auto_dynamic_deeplab_torch.cli import evaluate, search, train, train_edm
+    from auto_dynamic_deeplab_torch.data import native
+
+    if "smi" not in ctx:
+        ctx["smi"] = nvidia_smi_line()
+    pil_version = None
+    if importlib.util.find_spec("PIL") is not None:
+        import PIL
+
+        pil_version = PIL.__version__
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True, check=True).stdout.splitlines()[0]
+    native.get_lib(strict=True)
+    emit({"phase": "input_pipeline", "check": "installation", "pil": pil_version, "gxx": gxx,
+          "native_library": str(native.library_path())})
+    if pil_version is None:
+        raise RuntimeError("Pillow is not installed: the file datasets decode their PNG frames with it")
+
+    kernels = _all_kernels()
+    total = Counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "cityscapes"
+        t0 = time.perf_counter()
+        _write_city_tree(root, _city_frames())
+        emit({"phase": "input_pipeline", "check": "tree", "train": CITY_TRAIN, "val": CITY_VAL, "hw": list(CITY_HW),
+              "written_s": time.perf_counter() - t0})
+        t_tree = time.perf_counter()
+        emit({"phase": "input_pipeline", **_pipeline_parity()})
+        emit({"phase": "input_pipeline", "check": "device_augment_alone", **_device_augment_ms(),
+              "nvidia_smi": ctx["smi"]})
+
+        # the host loader alone over the train frames: the native engine, PIL, decode only
+        from auto_dynamic_deeplab_torch.data import CityscapesSegmentation
+
+        rates = {}
+        for name, env, kw in (("native", "1", {}), ("pil", "0", {}), ("decode_only", "1", {"raw": True})):
+            os.environ["ADD_TPU_NATIVE"] = env
+            try:
+                ds = CityscapesSegmentation(str(root), "train", crop_size=TRAIN_HW, **kw)
+                rates[name] = _loader_rate(ds)
+            finally:
+                os.environ.pop("ADD_TPU_NATIVE")
+        emit({"phase": "input_pipeline", "check": "host_loader_alone", "workers": 4, "batch": 4, **rates})
+
+        def drive(name, main, argv):
+            for f in kernels.values():
+                f.launches = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            result = main(argv)
+            wall = time.perf_counter() - t
+            counts = _counts(kernels)
+            return result, {"run": name, "wall_s": wall, "launches": counts,
+                            "peak_gb": torch.cuda.max_memory_allocated() / 2**30}
+
+        # each dtype's two routes in turns (host, device, device, host); a
+        # route's step ms is the median of its two runs' last-epoch steps
+        # after the first
+        base = CITY_TRAIN_ARGV + ["--data-root", str(root), "--run-dir", tmp]
+        steps = {}
+        runs = {}
+        for dname, extra in (("fp32", []), ("bf16", ["--bf16"])):
+            for turn, route in enumerate(("host", "device", "device", "host")):
+                key = f"{dname}_{route}"
+                name = f"cli.train {dname} {route}"
+                flag = ["--device-augment"] if route == "device" else []
+                result, row = drive(name, train.main, base + extra + flag + ["--checkname", f"{key}_{turn}"])
+                ms = result["step_ms"][1:]
+                row.update(step_ms_last_epoch=result["step_ms"], step_ms_median_after_first=statistics.median(ms),
+                           train_loss=result["train_loss"], val_miou=result["miou"], nvidia_smi=ctx["smi"])
+                want = {"fused_stems": CITY_VAL, "entropy_argmax_triton": 2 * CITY_VAL}
+                if any(row["launches"][k] != v for k, v in want.items()) or not np.isfinite(result["train_loss"]):
+                    raise AssertionError(f"{name}: {row}, want launches {want}")
+                emit({"phase": "input_pipeline", **row})
+                total.update(row["launches"])
+                steps.setdefault(key, []).extend(ms)
+                runs.setdefault(key, result)
+        step_ms = {k: statistics.median(v) for k, v in steps.items()}
+        emit({"phase": "input_pipeline", "check": "step_ms_by_route", "step_ms": step_ms,
+              "images_per_s": {k: 4e3 / v for k, v in step_ms.items()}, "steps": steps, "nvidia_smi": ctx["smi"]})
+
+        # the search split at the net_supernet recipe, batch 4: the halves of
+        # 8 frames give two weight and two arch steps
+        argv = ["--dataset", "cityscapes", "--data-root", str(root), "--network", "net_supernet", "--F", "20",
+                "--B", "5", "--C", "2", "--batch-size", "4", "--epochs", "1", "--alpha-epoch", "0", "--lr", "0.05",
+                "--min-lr", "0.003", "--arch-lr", "1e-3", "--weight-decay", "8e-4", "--seed", "2", "--workers", "4",
+                "--run-dir", tmp, "--device", "cuda"]
+        for f in kernels.values():
+            f.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        result = search.main(argv)
+        row = _search_row("cli.search net_supernet on the Cityscapes split", argv, result,
+                          time.perf_counter() - t, 4, _counts(kernels))
+        _check_path(result["decoded"]["path"], 12)
+        row["nvidia_smi"] = ctx["smi"]
+        emit({"phase": "input_pipeline", **row})
+        if any(row["launches"].values()):
+            raise AssertionError(f"a kernel ran on the search path, which has none: {row['launches']}")
+
+        # stage 3 on the full-size train frames, then the EDM-gated val frames
+        exp = runs["fp32_host"]["experiment_dir"]
+        result, row = drive("cli.train_edm cityscapes_edm --resume", train_edm.main,
+                            ["--dataset", "cityscapes_edm", "--data-root", str(root), "--epochs", "1", "--workers", "4",
+                             "--run-dir", tmp, "--resume", exp])
+        row["edm_l1"] = result
+        if row["launches"]["fused_stems"] != CITY_TRAIN or row["launches"]["entropy_argmax_triton"] != CITY_TRAIN \
+                or not np.isfinite(result):
+            raise AssertionError(f"cli.train_edm on the tree: {row}")
+        emit({"phase": "input_pipeline", **row})
+        total.update(row["launches"])
+        edm_exp = str(Path(tmp) / "cityscapes_edm" / "edm_C2" / "experiment_0")
+        stats, row = drive("cli.evaluate --dynamic --confidence edm", evaluate.main,
+                           ["--dataset", "cityscapes", "--data-root", str(root), "--workers", "4", "--dynamic",
+                            "--confidence", "edm", "--resume", exp, "--edm-resume", edm_exp])
+        _check_dynamic_stats("dynamic_edm_cityscapes", "xla", stats, CITY_VAL)
+        row["wrapper_calls"] = row.pop("launches")  # warm-up and capture; the replays call no wrapper
+        emit({"phase": "input_pipeline", **row, "stats": stats})
+        emit({"phase": "input_pipeline", "check": "seconds_after_tree", "seconds": time.perf_counter() - t_tree})
+    launches = ctx.setdefault("launches", {})
+    for name, n in total.items():
+        launches[name] = launches.get(name, 0) + n
+    ctx["data_launches"] = dict(total)
+
+
 def phase_kernels(ctx):
     """The kernels line; a run of a subset of the phases lists the kernels
     whose checks (phases 2-4) ran."""
@@ -1547,6 +1832,7 @@ def phase_kernels(ctx):
             "name": name, "route": route, "source": source, "replaces": replaces,
             "launches": launches.get(name, 0), "train_path_launches": ctx.get("train_launches", {}).get(name, 0),
             "search_path_launches": ctx.get("search_launches", {}).get(name, 0),
+            "data_path_launches": ctx.get("data_launches", {}).get(name, 0),
             "max_abs_err": main["max_abs_err"],
             "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main.get("library_ms"), "dtype": main["dtype"],
@@ -1575,13 +1861,13 @@ def phase_kernels(ctx):
 PHASES = {
     1: phase_device, 2: phase_k1, 3: phase_k2, 4: phase_cells, 5: phase_model,
     6: phase_main_path, 7: phase_engine, 8: phase_trained, 9: phase_kernels, 10: phase_train,
-    11: phase_search,
+    11: phase_search, 12: phase_input_pipeline,
 }
 
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--phases", default="1,2,3,4,5,6,7,8,10,11,9")
+    p.add_argument("--phases", default="1,2,3,4,5,6,7,8,10,11,12,9")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: no GPU", file=sys.stderr)

@@ -109,3 +109,30 @@ def test_edm_entry_points_default_to_cuda(tiny, dataset):
         make_edm_dataset(tiny, _loader(), NCLS)
     with pytest.raises(RuntimeError, match="cuda"):
         train_edm(features, entropies, epochs=1)
+
+
+def test_dense_init_is_flax_truncated_normal():
+    """``init_params`` draws a Dense kernel as flax's default (lecun_normal:
+    variance_scaling(1, fan_in, truncated_normal)): a normal truncated at
+    ±2σ with σ = sqrt(1/fan_in)/0.87962566. On a 512 x 2048 layer the
+    sample variance is within 2% of 1/fan_in and every draw within ±2σ,
+    as flax's own draw of the same shape; the EDM's three layers stay
+    within ±2σ too."""
+    from flax.linen.linear import default_kernel_init
+
+    from auto_dynamic_deeplab_torch.ops.primitives import Dense
+    from auto_dynamic_deeplab_torch.utils.initialize import init_params
+
+    fan_in, out = 512, 2048
+    sigma = np.sqrt(1.0 / fan_in) / 0.87962566
+    port = init_params(Dense(fan_in, out), torch.Generator().manual_seed(0)).kernel.detach().double().numpy()
+    ref = np.asarray(default_kernel_init(jax.random.PRNGKey(0), (fan_in, out)), np.float64)
+    for draw in (port, ref):
+        assert abs(draw.var() * fan_in - 1.0) <= 0.02
+        assert abs(draw.mean()) <= 0.01 * np.sqrt(1.0 / fan_in)
+        assert np.abs(draw).max() <= 2 * sigma * (1 + 1e-6)
+        assert np.abs(draw).max() >= 1.9 * sigma  # the tails reach the cut
+    edm = init_params(pt_models.EDM(40), torch.Generator().manual_seed(1))
+    for layer in (edm.fc1, edm.fc2, edm.fc3):
+        w = layer.kernel.detach().double()
+        assert w.abs().max() <= 2 * np.sqrt(1.0 / w.shape[1]) / 0.87962566 * (1 + 1e-6)

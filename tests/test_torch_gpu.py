@@ -1,5 +1,5 @@
 """K1-K6 against their plain versions on the card; one search iteration
-against the CPU.
+and the device augmentation against the CPU.
 
 This file imports neither jax nor the JAX package, so it also runs where
 only the port's dependencies are installed:
@@ -786,3 +786,59 @@ def test_search_iteration_on_gpu_matches_cpu():
             continue
         err = (t.cpu().double() - want[name].double()).abs().max().item()
         assert err <= 1e-5 * max(1.0, want[name].abs().max().item()), (name, err)
+
+
+@needs_gpu
+def test_device_augment_on_gpu_matches_cpu():
+    """``make_train_augment`` on the card against the same function on CPU
+    tensors (crop 65x65 from 96x128 and from 40x60, scales {0.5, 1, 1.7,
+    2}, both flips): images |Δ| ≤ 1e-5·max(1, max|ref|), labels equal;
+    ``make_eval_preprocess`` equal."""
+    import numpy as np
+
+    from auto_dynamic_deeplab_torch.data.device_transforms import make_eval_preprocess, make_train_augment
+
+    rng = np.random.RandomState(0)
+    crop = (65, 65)
+    for hw in ((96, 128), (40, 60)):
+        images = rng.randint(0, 256, (8, *hw, 3)).astype(np.uint8)
+        masks = rng.choice([0, 3, 7, 18, 255], size=(8, *hw)).astype(np.uint8)
+        scales = np.repeat(np.float32([0.5, 1.0, 1.7, 2.0]), 2)
+        flips = np.tile([False, True], 4)
+        offs = [[rng.randint(0, max(int(round(n * s)), c) - c + 1) for s in scales] for n, c in zip(hw, crop)]
+        args = (images, masks, scales, flips, np.int32(offs[0]), np.int32(offs[1]))
+        got = make_train_augment(hw, crop, device="cuda")(*args)
+        want = make_train_augment(hw, crop, device="cpu")(*args)
+        assert got[0].device.type == "cuda" and got[0].dtype == torch.float32 and got[1].dtype == torch.int64
+        tol = 1e-5 * max(1.0, want[0].abs().max().item())
+        assert (got[0].cpu() - want[0]).abs().max().item() <= tol
+        assert torch.equal(got[1].cpu(), want[1])
+        got = make_eval_preprocess(hw, (97, 129), device="cuda")(images, masks)
+        want = make_eval_preprocess(hw, (97, 129), device="cpu")(images, masks)
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+
+
+@needs_gpu
+def test_raw_cache_trains_with_device_augment_on_gpu(tmp_path):
+    """A RawArrayCache built from seeded uint8 frames feeds ``Trainer`` with
+    ``device_augment`` on the card: one step at 33x65 from 96x128 frames,
+    the augmented batch on the card and a finite loss."""
+    import numpy as np
+
+    from auto_dynamic_deeplab_torch import models as pt_models
+    from auto_dynamic_deeplab_torch.data import DataLoader, RawArrayCache, peek_batch
+    from auto_dynamic_deeplab_torch.train.trainer import TrainConfig, Trainer
+
+    rng = np.random.RandomState(1)
+    frames = [{"image_u8": rng.randint(0, 256, (96, 128, 3)).astype(np.uint8),
+               "label_u8": rng.choice([0, 5, 18, 255], size=(96, 128)).astype(np.uint8)} for _ in range(2)]
+    cache = RawArrayCache.build(frames, str(tmp_path / "cache"))
+    loader = DataLoader(cache, 2, num_workers=1)
+    model = pt_models.ADD([1, 2, 2, 2, 3, 2], [1], AUTODEEPLAB_GENOTYPE, 19, F=4, B=5)
+    init_params(model, torch.Generator().manual_seed(0))
+    cfg = TrainConfig(epochs=1, eval_interval=0, run_dir=str(tmp_path), device_augment=True, crop_size=(33, 65))
+    trainer = Trainer(model, loader, None, cfg, device="cuda", seed=3)
+    image, label = trainer._device_augment(peek_batch(loader), epoch=0, b=0)
+    assert image.is_cuda and image.shape == (2, 33, 65, 3) and label.shape == (2, 33, 65)
+    loss = trainer.training(0)
+    assert np.isfinite(loss) and len(trainer.step_ms) == 1 and trainer.train_step.step == 1

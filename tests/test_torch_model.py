@@ -362,9 +362,15 @@ def test_cli_evaluate_cpu(extra, capsys):
         assert len(stats["miou"]) == 2 and all(0.0 <= m <= 1.0 for m in stats["miou"])
 
 
-def test_cli_rejects_unported_dataset():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt_make_data_loader("cityscapes", 1)
+def test_cli_rejects_unported_dataset(tmp_path):
+    """A dataset the loader factory does not know raises; a known file
+    dataset on a root without its frames raises FileNotFoundError, as the
+    JAX package's datasets do."""
+    with pytest.raises(NotImplementedError, match="ade20k"):
+        pt_make_data_loader("ade20k", 1)
+    for dataset in ("cityscapes", "pascal"):
+        with pytest.raises(FileNotFoundError):
+            pt_make_data_loader(dataset, 1, root=str(tmp_path / "missing"))
 
 
 def test_cuda_default_raises_without_gpu(tiny):

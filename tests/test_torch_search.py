@@ -8,19 +8,32 @@ Tolerances: logits |Δ| ≤ 1e-3·max|ref| (fp32, the golden-test tolerance);
 bf16 logits by ``assert_bf16_within_jax``; the BN running statistics a
 training forward or a step leaves ≤ 1e-4 relative per tensor;
 ``normalize_betas`` and its gradient ≤ 1e-6. The steps (JAX
-``make_search_steps`` on ModelNetSearch; the mixed supernet's step program
-costs minutes of XLA compilation on the CPU, so its gradients are held to
-JAX at the cell, ``test_mixed_cell_gradients_match_jax``): losses ≤ 1e-5
-relative, weight and arch gradients ≤ 1e-4 (L2, relative). JAX's gradient
-is read off its own step program run with a probing optimizer whose
-update is the (decayed) gradient itself (SGD at lr 1e3; Adam with eps and
--lr 1e6, so that m̂ / (sqrt(v̂) + eps) ≈ g / eps). The real optimizers'
-updates are then applied to each side's gradient: the weights after the
-step |Δ| ≤ 1e-6·max(1, max|ref|); the arch after Adam's first step, which
-is nearly -lr·sign(g), |Δ| ≤ 1e-6 on the components whose decayed
-gradient exceeds 1e-2 of the tensor's largest (below that a component's
-sign is fp32 noise and may flip, moving it by 2·lr).
+``make_search_steps`` on ModelNetSearch and on the mixed ModelSearch;
+the mixed cell's gradients are also held at one cell,
+``test_mixed_cell_gradients_match_jax``): losses ≤ 1e-5 relative, weight
+and arch gradients ≤ 1e-4 (L2, relative). JAX's gradient is read off its
+own step program run with a probing optimizer whose update is the
+(decayed) gradient itself (SGD at lr 1e3; Adam with eps and -lr 1e6, so
+that m̂ / (sqrt(v̂) + eps) ≈ g / eps). The real optimizers' updates are
+then applied to each side's gradient: the weights after the step |Δ| ≤
+1e-6·max(1, max|ref|); the arch after Adam's first step, which is nearly
+-lr·sign(g), |Δ| ≤ 1e-6 on the components whose decayed gradient exceeds
+1e-2 of the tensor's largest (below that a component's sign is fp32 noise
+and may flip, moving it by 2·lr).
+
+The JAX side of the supernets' forwards and steps is recorded in
+tests/torch_search_ref.npz by scripts/torch_record_search_ref.py (the
+JAX package on the CPU: its step programs take minutes of XLA
+compilation, the mixed supernet's most), with the variables it ran on
+and the hashes of its inputs; regenerate it with
+``JAX_PLATFORMS=cpu python scripts/torch_record_search_ref.py``. The
+mixed supernet's step is JAX's in float64: its fp32 program parts from
+its own float64 run by 7.1e-4 / 8.3e-4 (weight / arch gradient, L2),
+where the port's fp32 step is within 3.3e-6 of it
+(scripts/torch_search_conditioning.py).
 """
+import hashlib
+import json
 import os
 
 import jax
@@ -48,7 +61,6 @@ from auto_dynamic_deeplab_tpu.models.supernet_cell import MixedOp as JxMixedOp
 from auto_dynamic_deeplab_tpu.models.supernet_cell import TrellisCell as JxTrellisCell
 from auto_dynamic_deeplab_tpu.train.schedules import lr_schedule as jx_lr_schedule
 from auto_dynamic_deeplab_tpu.train.step import make_arch_optimizer as jx_make_arch_optimizer
-from auto_dynamic_deeplab_tpu.train.step import make_search_steps
 
 from test_supernet import _bank_cell_tree, _scan_cell_tree
 from torch_port_helpers import assert_bf16_within_jax, assert_close_fp32_model, flax_variables, nchw, rel_err
@@ -90,23 +102,53 @@ def _port(variables, kind, **kw):
     return load_jax_variables(_supernet(pt_models, kind, **kw), variables)
 
 
+REF_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_search_ref.npz")
+
+
 @pytest.fixture(scope="module")
-def ref():
-    """Per kind, built on first use: the JAX model, its variables, and its
-    eval and training logits (with the statistics training leaves) on one
-    batch."""
-    cache = {}
-    image, _ = _batch()
+def recorded():
+    """The JAX package's answers, recorded by scripts/torch_record_search_ref.py."""
+    with np.load(REF_PATH) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _tree(rec: dict, prefix: str) -> dict:
+    """The nested dict recorded under ``prefix`` (one float32 vector and
+    the JSON index of its leaves)."""
+    data, out, at = rec[f"{prefix}:data"], {}, 0
+    for path, shape in json.loads(str(rec[f"{prefix}:index"])):
+        n = int(np.prod(shape))
+        *parents, leaf = path.split("/")
+        node = out
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[leaf] = data[at:at + n].reshape(shape)
+        at += n
+    assert at == data.size
+    return out
+
+
+def _list(rec: dict, prefix: str) -> list:
+    return [rec[f"{prefix}/{i}"] for i in range(sum(k.startswith(prefix + "/") for k in rec))]
+
+
+def _recorded_batch(rec: dict, seed: int):
+    """The port's synthetic batch of ``seed``, which the recording ran on."""
+    image, label = _batch(seed=seed)
+    assert hashlib.sha256(image.tobytes() + label.tobytes()).hexdigest() == str(rec[f"batch{seed}/sha256"])
+    return image, label
+
+
+@pytest.fixture(scope="module")
+def ref(recorded):
+    """Per kind: the variables, and the eval and training logits (with the
+    statistics training leaves) of the JAX model on one batch."""
 
     def get(kind):
-        if kind not in cache:
-            jm = _supernet(jx_models, kind, remat=False)
-            v = flax_variables(jm, jnp.zeros((1, *HW, 3)), train=True, seed=3)
-            ev = jax.jit(lambda v, x: jm.apply(v, x, train=False))(v, jnp.asarray(image))
-            tr, upd = jax.jit(lambda v, x: jm.apply(v, x, train=True, mutable=["batch_stats"]))(v, jnp.asarray(image))
-            cache[kind] = {"model": jm, "variables": v, "eval": [np.asarray(o) for o in ev],
-                           "train": [np.asarray(o) for o in tr], "stats": _flat(jax.device_get(upd["batch_stats"]))}
-        return cache[kind]
+        variables = {c: _tree(recorded, f"{kind}/variables/{c}") for c in ("params", "batch_stats", "arch")}
+        return {"variables": variables, "image": _recorded_batch(recorded, 0)[0],
+                "eval": _list(recorded, f"{kind}/eval"), "train": _list(recorded, f"{kind}/train"),
+                "stats": _flat(_tree(recorded, f"{kind}/stats"))}
 
     return get
 
@@ -134,8 +176,7 @@ def test_supernet_forward_matches_jax(ref, kind, train):
     blended (a cell's ops once per branch, in the order down, same, up)."""
     r = ref(kind)
     model = _port(r["variables"], kind)
-    image, _ = _batch()
-    outs = _logits(model, image, train)
+    outs = _logits(model, r["image"], train)
     want = r["train" if train else "eval"]
     assert len(outs) == len(want) == 2
     for out, w in zip(outs, want):
@@ -178,7 +219,7 @@ def test_bridge_takes_banked_and_scan_layouts(ref, mode):
     vb = {"arch": v["arch"], "params": convert(v["params"]), "batch_stats": convert(v["batch_stats"])}
     if mode == "scan":  # lanes 2 + b.. of block b carry zero mixing weight: their values must not matter
         vb["params"], vb["batch_stats"] = _garbage_pad_lanes(vb["params"]), _garbage_pad_lanes(vb["batch_stats"])
-    image, _ = _batch()
+    image = r["image"]
     model = _port(vb, "mixed")
     edges = _port(v, "mixed")
     for train in (False, True):
@@ -199,13 +240,11 @@ def test_bridge_takes_banked_and_scan_layouts(ref, mode):
         _port(bad, "mixed")
 
 
-def test_bf16_forward_within_jax(ref):
+def test_bf16_forward_within_jax(ref, recorded):
     """ModelNetSearch under the bf16 policy, eval mode, every exit."""
     r = ref("net")
-    image, _ = _batch()
-    jm16 = _supernet(jx_models, "net", remat=False, dtype=jnp.bfloat16)
-    ref16 = jax.jit(lambda v, x: jm16.apply(v, x, train=False))(r["variables"], jnp.asarray(image))
-    outs = _logits(_port(r["variables"], "net", dtype=torch.bfloat16), image, False)
+    ref16 = _list(recorded, "net/bf16_eval")
+    outs = _logits(_port(r["variables"], "net", dtype=torch.bfloat16), r["image"], False)
     for out, j16, j32 in zip(outs, ref16, r["eval"]):
         assert out.dtype == np.float32
         assert_bf16_within_jax(out, np.asarray(j16, np.float32), j32)
@@ -310,37 +349,42 @@ def test_mixed_cell_gradients_match_jax():
 # ----------------------------------------------------------------- steps
 
 
-PROBE_LR = 1e3
-
-
 @pytest.fixture(scope="module")
-def steps(ref):
-    """JAX ``make_search_steps`` on ModelNetSearch from the shared
-    variables: the weight step with the mean loss, the arch step with the
-    summed loss, each run with a probing optimizer that exposes its
-    (decayed) gradient: g' = (p0 - p1) / lr for SGD's first step at lr
-    1e3, g' = -(a1 - a0) for Adam with eps = lr = 1e6 (m̂ / (sqrt(v̂) +
-    eps) = g' / (|g'| + 1e6))."""
-    r = ref("net")
-    v = jax.tree.map(jnp.asarray, r["variables"])
-    image, label = _batch(seed=1)
-    batch = {"image": jnp.asarray(image), "label": jnp.asarray(label)}
-    w_probe = optax.chain(optax.add_decayed_weights(WD), optax.sgd(PROBE_LR, momentum=0.9))
-    a_probe = optax.chain(optax.add_decayed_weights(ARCH_WD), optax.scale_by_adam(eps=1e6), optax.scale(-1e6))
-    ws, _ = make_search_steps(r["model"], w_probe, a_probe, loss_reduce="mean")
-    _, as_ = make_search_steps(r["model"], w_probe, a_probe, loss_reduce="sum")
-    p1, w_stats, _, w_loss = ws(v["params"], v["batch_stats"], v["arch"], w_probe.init(v["params"]), batch)
-    a1, a_stats, _, a_loss = as_(v["params"], v["batch_stats"], v["arch"], a_probe.init(v["arch"]), batch)
-    p0, a0 = _flat(jax.device_get(v["params"])), _flat(jax.device_get(v["arch"]))
-    w_decayed = {k: (p0[k] - p) / PROBE_LR for k, p in _flat(jax.device_get(p1)).items()}
-    a_decayed = {k: a0[k] - a for k, a in _flat(jax.device_get(a1)).items()}
-    return {
-        "variables": r["variables"], "batch": (image, label),
-        "weight": {"loss": float(w_loss), "stats": _flat(jax.device_get(w_stats)),
-                   "grads": {k: g - WD * p0[k] for k, g in w_decayed.items()}, "decayed": w_decayed, "p0": p0},
-        "arch": {"loss": float(a_loss), "stats": _flat(jax.device_get(a_stats)),
-                 "grads": {k: g - ARCH_WD * a0[k] for k, g in a_decayed.items()}, "decayed": a_decayed, "p0": a0},
-    }
+def steps(ref, recorded):
+    """Per kind: JAX ``make_search_steps`` from the shared variables, the
+    weight step with the mean loss and the arch step with the summed loss,
+    each run with a probing optimizer that exposes its (decayed)
+    gradient: g' = (p0 - p1) / lr for SGD's first step at lr 1e3, g' =
+    -(a1 - a0) for Adam with eps = lr = 1e6 (m̂ / (sqrt(v̂) + eps) = g' /
+    (|g'| + 1e6)); then the real optax chain applied to the gradient g'
+    less the decay (elementwise, so on all parameters as one vector)."""
+    chains = {"weight": optax.chain(optax.add_decayed_weights(WD),
+                                    optax.sgd(jx_lr_schedule("cos", LR, 1, 2, min_lr=0.003), momentum=0.9)),
+              "arch": jx_make_arch_optimizer(ARCH_LR, ARCH_WD)}
+
+    def get(kind):
+        r = ref(kind)
+        out = {"variables": r["variables"], "batch": _recorded_batch(recorded, 1)}
+        for which, collection, decay in (("weight", "params", WD), ("arch", "arch", ARCH_WD)):
+            p0 = _flat(r["variables"][collection])
+            decayed = _flat(_tree(recorded, f"{kind}_step/{which}/decayed"))
+            grads = {k: g - decay * p0[k] for k, g in decayed.items()}
+            names = sorted(grads)
+            tx = chains[which]
+            flat_p = jnp.asarray(np.concatenate([p0[k].ravel() for k in names]), jnp.float32)
+            flat_g = jnp.asarray(np.concatenate([grads[k].ravel() for k in names]), jnp.float32)
+            new = np.asarray(jax.jit(lambda g, p: optax.apply_updates(p, tx.update(g, tx.init(p), p)[0]))(
+                flat_g, flat_p), np.float64)
+            updated, at = {}, 0
+            for k in names:
+                updated[k] = new[at:at + p0[k].size].reshape(p0[k].shape)
+                at += p0[k].size
+            out[which] = {"loss": float(recorded[f"{kind}_step/{which}/loss"]),
+                          "stats": _flat(_tree(recorded, f"{kind}_step/{which}/stats")),
+                          "grads": grads, "decayed": decayed, "updated": updated}
+        return out
+
+    return get
 
 
 def _l2_rel(got: dict, want: dict) -> float:
@@ -348,17 +392,17 @@ def _l2_rel(got: dict, want: dict) -> float:
     return (num / sum(float((w ** 2).sum()) for w in want.values())) ** 0.5
 
 
-@pytest.mark.parametrize("which,reduce", [("weight", "mean"), ("arch", "sum")])
-def test_search_step_matches_jax(steps, which, reduce):
+def _check_search_step(s_all, kind, which, reduce):
     """One step of the port's ``SearchSteps`` (the real optimizers: SGD
     momentum 0.9 without Nesterov, the cos schedule's lr(0), decay 8e-4 on
     every weight, BN affine terms included; Adam with L2 1e-3) against
     JAX's: loss, gradient, the BN statistics the step blended, the
     parameters it updated (the real optax chain applied to JAX's
-    gradient), and nothing else moved."""
-    s = steps[which]
-    image, label = steps["batch"]
-    model = _port(steps["variables"], "net")
+    gradient), and nothing else moved. Returns the gradient's L2 error,
+    relative."""
+    s = s_all[which]
+    image, label = s_all["batch"]
+    model = _port(s_all["variables"], kind)
     sched = pt_lr_schedule("cos", LR, 1, 2, min_lr=0.003)
     st = SearchSteps(model, make_optimizer(model.weight_parameters(), nesterov=False, weight_decay=WD),
                      make_arch_optimizer(model.arch_parameters(), ARCH_LR, ARCH_WD), sched, loss_reduce=reduce)
@@ -368,22 +412,14 @@ def test_search_step_matches_jax(steps, which, reduce):
     assert loss.dim() == 0 and abs(loss.item() - s["loss"]) <= 1e-5 * s["loss"]
     params = dict(model.named_parameters())
     grads = {k: params[k].grad.double().numpy() for k in s["grads"]}
-    assert _l2_rel(grads, s["grads"]) <= 1e-4
+    grad_err = _l2_rel(grads, s["grads"])
+    assert grad_err <= 1e-4
     # only this step's parameters have gradients; the others did not move
     other = [k for k in params if k not in s["grads"]]
     assert all(params[k].grad is None and torch.equal(params[k], before[k]) for k in other)
     _assert_stats(model, s["stats"])
     assert (st.step == 1) == (which == "weight")
-    if which == "weight":
-        jtx = optax.chain(optax.add_decayed_weights(WD),
-                          optax.sgd(jx_lr_schedule("cos", LR, 1, 2, min_lr=0.003), momentum=0.9))
-    else:
-        jtx = jx_make_arch_optimizer(ARCH_LR, ARCH_WD)
-    p0 = {k: jnp.asarray(a, jnp.float32) for k, a in s["p0"].items()}  # elementwise: any layout
-    g = {k: jnp.asarray(a, jnp.float32) for k, a in s["grads"].items()}
-    want = jax.jit(lambda g, p: optax.apply_updates(p, jtx.update(g, jtx.init(p), p)[0]))(g, p0)
-    want = {k: np.asarray(a, np.float64) for k, a in want.items()}
-    for k, w in want.items():
+    for k, w in s["updated"].items():
         got = params[k].detach().double().numpy()
         if which == "arch":  # Adam's first step: about -lr·sign(g'), noisy where g' is
             d = np.abs(s["decayed"][k])
@@ -391,6 +427,24 @@ def test_search_step_matches_jax(steps, which, reduce):
             assert big.sum() >= 8, k
             got, w = got[big], w[big]
         assert np.abs(got - w).max() <= 1e-6 * max(1.0, float(np.abs(w).max())), k
+    return grad_err
+
+
+@pytest.mark.parametrize("which,reduce", [("weight", "mean"), ("arch", "sum")])
+def test_search_step_matches_jax(steps, which, reduce):
+    """ModelNetSearch's weight step (mean loss) and arch step (summed)."""
+    _check_search_step(steps("net"), "net", which, reduce)
+
+
+@pytest.mark.parametrize("which,reduce", [("weight", "mean"), ("arch", "sum")])
+def test_mixed_supernet_search_step_matches_jax(steps, recorded, which, reduce):
+    """The mixed ModelSearch's weight step (mean loss) and arch step
+    (summed), against JAX's in float64: every MixedOp's seven primitives
+    and the alphas' gradient through the whole supernet. The port's fp32
+    gradient lies closer to that oracle than JAX's own fp32 step does
+    (recorded beside it), which is why the oracle is the float64 step."""
+    grad_err = _check_search_step(steps("mixed"), "mixed", which, reduce)
+    assert grad_err < float(recorded[f"mixed_step/{which}/fp32_grad_rel_l2"])
 
 
 def test_unreached_parameters_still_decay():
@@ -491,13 +545,16 @@ def test_search_trainer_end_to_end_and_resume(tmp_path):
     assert meta["epoch"] == 1 and state["step"] == 4 and set(state) == {"model", "w_opt", "a_opt", "step"}
 
 
-def test_search_loaders_split():
+def test_search_loaders_split(tmp_path):
+    """The synthetic split; Cityscapes' (``two_train_seg``, held to JAX in
+    tests/test_torch_data.py) raises on a root without frames, as the JAX
+    dataset does."""
     a, b, val, n = pt_make_data_loader("synthetic", 4, 1, num_workers=1, synthetic_length=8,
                                        synthetic_crop=HW, supernet=True)
     assert (len(a.dataset), len(b.dataset), len(val.dataset), n) == (8, 4, 8, 19)
     assert b.dataset.seed == 2 and len(b) == 1
-    with pytest.raises(NotImplementedError, match="item 8"):
-        pt_make_data_loader("cityscapes", 4, supernet=True)
+    with pytest.raises(FileNotFoundError, match="No files"):
+        pt_make_data_loader("cityscapes", 4, supernet=True, root=str(tmp_path / "missing"))
 
 
 # ------------------------------------------------------------------ CLIs

@@ -511,7 +511,7 @@ def test_cli_train_edm_evaluate_end_to_end(tmp_path, capsys):
     assert printed[-1]["device"] == "cpu"
 
 
-@pytest.mark.parametrize("flag", ["--sync-bn", "--device-augment"])
+@pytest.mark.parametrize("flag", ["--sync-bn"])
 def test_cli_train_rejects_unported_flags(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         pt_cli_train.main(_CLI + [flag])
