@@ -1,4 +1,12 @@
-"""Shared CLI plumbing (cli/common.py of the JAX package)."""
+"""Shared CLI plumbing (cli/common.py of the JAX package).
+
+Every CLI joins a process group when the environment names one
+(``parallel.distributed.initialize``: ``torchrun``, or the JAX package's
+``COORDINATOR_ADDRESS`` / ``NUM_PROCESSES`` / ``PROCESS_ID``): NCCL with
+``--device cuda``, gloo with ``--device cpu``. Under a group ``cli.train``
+is data-parallel (``--sync-bn`` adds cross-replica BN) unless
+``--no-data-parallel``, and ``cli.search`` / ``cli.search_layer`` unless
+``--no-dp``."""
 from __future__ import annotations
 
 import argparse
@@ -23,7 +31,10 @@ def add_common_args(p: argparse.ArgumentParser):
     p.add_argument("--run-dir", default="run")
     p.add_argument("--checkname", default=None)
     p.add_argument("--sync-bn", action="store_true",
-                   help="cross-replica BN (not ported yet: ROADMAP Queue 1 item 12)")
+                   help="cross-replica BN: under a process group the BNs of cli.train take their training "
+                        "statistics over every rank's rows (JAX: axis_name over the data mesh axis)")
+    p.add_argument("--no-data-parallel", action="store_true",
+                   help="cli.train: the single-device step (raises under a process group of more than one rank)")
     p.add_argument("--crop-size", type=int, nargs=2, default=(769, 769),
                    help="train crop of Cityscapes; the synthetic set's images are --synthetic-crop")
     p.add_argument("--synthetic-crop", type=int, nargs=2, default=(65, 65))
@@ -44,12 +55,3 @@ def resolve_arch(args, genotype_path: str | None = None):
 def search_c_index(C: int):
     """The exit stations cli.search takes for --C (search.py:81-88)."""
     return SEARCH_C_INDEX[C]
-
-
-def reject_unported(args):
-    """Raise on a flag whose feature this package does not have yet,
-    rather than run without it."""
-    if args.sync_bn:
-        raise NotImplementedError(
-            "--sync-bn: cross-replica BN comes with the data-parallel trainer (ROADMAP Queue 1 item 12)"
-        )

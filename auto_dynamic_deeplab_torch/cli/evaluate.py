@@ -8,7 +8,11 @@ cli.train_edm write them.
 
     python -m auto_dynamic_deeplab_torch.cli.evaluate --dynamic \\
         --confidence entropy --threshold 0.5 --synthetic-crop 1025 2049 \\
-        [--cell-exec flat] [--resume DIR] [--edm-resume DIR]
+        [--cell-exec flat] [--resume DIR] [--edm-resume DIR] [--pipeline-devices 2]
+
+--pipeline-devices N (>= 2) runs --dynamic as a pipeline over cuda:0..N-1
+(parallel/pipeline.py: each stage holds only its segments' modules), the
+segment loop in each stage; with --device cpu, N stages on the CPU.
 """
 from __future__ import annotations
 
@@ -24,7 +28,7 @@ from ..runtime import resolve_device
 from ..train.evaluator import Evaluation
 from ..utils.initialize import init_params
 from ..utils.saver import restore_checkpoint
-from .common import add_common_args, reject_unported, resolve_arch
+from .common import add_common_args, resolve_arch
 
 
 def build_parser():
@@ -38,6 +42,11 @@ def build_parser():
     p.add_argument("--edm-resume", default=None, help="stage-3 experiment dir")
     p.add_argument("--genotype", default=None)
     p.add_argument(
+        "--pipeline-devices", type=int, default=0,
+        help=">=2: pipeline the dynamic-inference segments across this many devices "
+        "(per-stage module partitioning, parallel/pipeline.py); raises with fewer GPUs",
+    )
+    p.add_argument(
         "--cell-exec", default="xla", choices=["xla", "flat"],
         help="cell execution: plain ops (xla), or each cell's DAG through the "
         "hand-written cell kernels K3-K6 (flat; their plain versions on the CPU)",
@@ -49,7 +58,6 @@ def build(args):
     """(Evaluation, val loader) of parsed ``args``: the model, its seeded
     or restored weights and, for a dynamic EDM run, the EDM, on
     ``args.device``."""
-    reject_unported(args)
     device = resolve_device(args.device)
     path, C_index, low_level_layer, genotype = resolve_arch(args, args.genotype)
 
@@ -84,6 +92,7 @@ def main(argv=None):
     if args.dynamic:
         stats = evaluation.dynamic_inference(
             val_loader, threshold=args.threshold, confidence=args.confidence,
+            pipeline_devices=args.pipeline_devices,
         )
     else:
         stats = evaluation.validate(val_loader)

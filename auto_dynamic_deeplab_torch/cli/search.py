@@ -1,6 +1,9 @@
 """Stage 1, NAS search (cli/search.py of the JAX package; the
-reference's search.py), with the JAX CLI's flags, on one device: the GPU by
-default, the CPU with --device cpu.
+reference's search.py), with the JAX CLI's flags: on the GPU by default,
+the CPU with --device cpu. Under a process group (torchrun; see
+cli/common.py) both bilevel steps are data-parallel with cross-replica BN
+in the supernet, as the JAX CLI searches over its data mesh, unless
+--no-dp; without one it searches on one device.
 
     --network supernet      cell+path search (Model_search)
     --network net_supernet  path-only search with fixed cells (Model_net_search)
@@ -12,6 +15,9 @@ default, the CPU with --device cpu.
     python -m auto_dynamic_deeplab_torch.cli.search --device cpu --num-layers 4 \\
         --exit-layers 2 --F 2 --B 2 --batch-size 4 --synthetic-crop 65 65 \\
         --synthetic-length 8 --epochs 2 --alpha-epoch 1 --eval-interval 1
+    torchrun --nproc_per_node 2 -m auto_dynamic_deeplab_torch.cli.search --device cpu \
+        --num-layers 4 --exit-layers 2 --F 2 --B 2 --batch-size 4 --synthetic-crop 65 65 \
+        --synthetic-length 8 --epochs 1 --alpha-epoch 0
 
 Checkpoints and the decoded architecture of every validation
 (``arch_epoch_{e}/``) go to {--run-dir}/{--dataset}/{--checkname}/experiment_N.
@@ -26,13 +32,13 @@ import torch
 from ..data import make_data_loader
 from ..models import ModelBaselinePathSearch, ModelNetSearch, ModelSearch
 from ..nas.genotypes import AUTODEEPLAB_GENOTYPE
+from ..ops.norm import set_bn_group
+from ..parallel.distributed import data_shard, session
+from ..parallel.mesh import make_data_mesh
 from ..runtime import resolve_device
 from ..train.search_trainer import SearchConfig, SearchTrainer
 from ..utils.initialize import init_params
-from .common import add_common_args, reject_unported, search_c_index
-
-SINGLE_DEVICE = ("accepted; the port searches on one device (the data-parallel search is "
-                 "ROADMAP Queue 1 item 12)")
+from .common import add_common_args, search_c_index
 
 
 def add_search_args(p: argparse.ArgumentParser):
@@ -52,13 +58,13 @@ def add_search_args(p: argparse.ArgumentParser):
     p.add_argument("--num-layers", type=int, default=12)
     p.add_argument("--genotype", default=None, help="path to genotype .npy (default: the shipped cell)")
     p.add_argument("--no-remat", action="store_true", help="keep the cells' activations (no recomputation)")
-    p.add_argument("--no-dp", action="store_true", help=SINGLE_DEVICE)
+    p.add_argument("--no-dp", action="store_true",
+                   help="search on one device even under a process group (raises there with more than one rank)")
     return p
 
 
 def build_parser():
-    p = argparse.ArgumentParser(description="NAS supernet search, one device (data-parallel search: "
-                                "ROADMAP Queue 1 item 12)")
+    p = argparse.ArgumentParser(description="NAS supernet search (data-parallel under a process group)")
     add_search_args(p)
     p.add_argument("--network", default="net_supernet", choices=["supernet", "net_supernet", "baseline_path"])
     p.add_argument("--resume", default=None,
@@ -84,10 +90,18 @@ def build_model(args, nclass: int, network: str, exits):
 
 
 def run(args, network: str, exits, loss_reduce: str, checkname: str, resume=None) -> dict:
-    """Build, initialize (seeded) and search; print the decoded path (and
-    genotype) as the JAX CLI does. Returns the last validation's result with
-    ``train_loss``, ``step_ms``, ``decoded`` and ``experiment_dir``."""
-    reject_unported(args)
+    """Build, initialize (seeded) and search, data-parallel under a process
+    group unless ``--no-dp``; print the decoded path (and genotype) as the
+    JAX CLI does. Returns the last validation's result with
+    ``train_loss``, ``step_ms``, ``step_losses``, ``decoded`` and
+    ``experiment_dir``."""
+    with session(args.device):
+        return _search(args, network, exits, loss_reduce, checkname, resume)
+
+
+def _search(args, network, exits, loss_reduce, checkname, resume) -> dict:
+    if args.no_dp and data_shard()[1] > 1:
+        raise ValueError(f"--no-dp under a {data_shard()[1]}-rank process group: every rank would search alone")
     device = resolve_device(args.device)
     loader_a, loader_b, val_loader, nclass = make_data_loader(
         args.dataset, args.batch_size, args.test_batch_size, root=args.data_root, supernet=True,
@@ -95,19 +109,22 @@ def run(args, network: str, exits, loss_reduce: str, checkname: str, resume=None
         synthetic_length=args.synthetic_length, synthetic_crop=tuple(args.synthetic_crop),
     )
     model = init_params(build_model(args, nclass, network, exits), torch.Generator().manual_seed(args.seed))
+    mesh = None if args.no_dp else make_data_mesh(args.batch_size)
+    if mesh is not None:
+        set_bn_group(model, mesh.group)  # JAX builds the supernet with axis_name=DATA_AXIS
     cfg = SearchConfig(
         epochs=args.epochs, alpha_epoch=args.alpha_epoch, lr=args.lr, min_lr=args.min_lr,
         arch_lr=args.arch_lr, weight_decay=args.weight_decay, arch_weight_decay=args.arch_weight_decay,
         eval_interval=args.eval_interval, loss_reduce=loss_reduce, run_dir=args.run_dir,
         dataset=args.dataset, checkname=args.checkname or checkname, resume=resume,
     )
-    trainer = SearchTrainer(model, loader_a, loader_b, val_loader, cfg, device=device)
+    trainer = SearchTrainer(model, loader_a, loader_b, val_loader, cfg, device=device, mesh=mesh)
     result = trainer.fit()
     decoded = trainer.decode_and_save(cfg.epochs)
     print("decoded path:", decoded["path"].tolist(), flush=True)
     if decoded["genotype"] is not None:
         print("genotype:", decoded["genotype"].tolist(), flush=True)
-    return {**result, "decoded": decoded, "experiment_dir": trainer.saver.experiment_dir,
+    return {**result, "decoded": decoded, "experiment_dir": trainer.experiment_dir,
             "start_epoch": trainer.start_epoch}
 
 

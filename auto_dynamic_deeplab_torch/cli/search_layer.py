@@ -1,5 +1,6 @@
 """Stage 1, the fixed-2-exit variant (cli/search_layer.py of the JAX
-package; the reference's search_layer.py), on one device. It searches the
+package; the reference's search_layer.py), data-parallel under a process
+group unless --no-dp, as cli.search. It searches the
 2-exit supernets with a summed per-exit CE (loss_1 + loss_2,
 search_layer.py:187-196) instead of cli.search's mean:
 
@@ -18,8 +19,7 @@ from .search import add_search_args, run
 
 
 def build_parser():
-    p = argparse.ArgumentParser(description="NAS 2-exit supernet search, one device (data-parallel search: "
-                                "ROADMAP Queue 1 item 12)")
+    p = argparse.ArgumentParser(description="NAS 2-exit supernet search (data-parallel under a process group)")
     add_search_args(p)
     p.add_argument("--network", default="baseline_path", choices=["supernet", "baseline_path"])
     p.add_argument("--exit-layer", type=int, default=5, help="the fixed early-exit station (reference default 5)")

@@ -1,6 +1,7 @@
 """Stage-2 driver: train the decoded multi-exit network (cli/train.py of
-the JAX package; the reference's train.py), with the JAX CLI's flags, on
-one device: the GPU by default, the CPU with --device cpu.
+the JAX package; the reference's train.py), with the JAX CLI's flags: on
+the GPU by default, the CPU with --device cpu; one process per device
+under torchrun, data-parallel (see cli/common.py).
 
     python -m auto_dynamic_deeplab_torch.cli.train --epochs 1 \\
         --synthetic-crop 769 769 --synthetic-length 16 [--bf16] [--remat]
@@ -13,7 +14,12 @@ one device: the GPU by default, the CPU with --device cpu.
 --device-augment ships decode-only uint8 batches and flips, scales, crops
 and normalizes them on the device (data/device_transforms.py).
 
-Checkpoints go to {--run-dir}/{--dataset}/{--checkname}/experiment_N.
+    torchrun --nproc_per_node 2 -m auto_dynamic_deeplab_torch.cli.train --sync-bn \
+        --device cpu --F 4 --synthetic-crop 33 65 --synthetic-length 8 --batch-size 4 --epochs 1
+
+--sync-bn (cross-replica BN) needs a process group, with data
+parallelism on. Checkpoints go to {--run-dir}/{--dataset}/{--checkname}/experiment_N,
+written by rank 0.
 """
 from __future__ import annotations
 
@@ -21,13 +27,16 @@ import argparse
 import json
 
 import torch
+import torch.distributed as dist
 
 from ..data import calculate_class_weights, make_data_loader
 from ..models import ADD, BaselineModel
+from ..ops.norm import set_bn_group
+from ..parallel.distributed import session
 from ..runtime import resolve_device
 from ..train.trainer import TrainConfig, Trainer
 from ..utils.initialize import init_params
-from .common import add_common_args, reject_unported, resolve_arch
+from .common import add_common_args, resolve_arch
 
 
 def build_parser():
@@ -58,7 +67,16 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    reject_unported(args)
+    with session(args.device):
+        return run(args)
+
+
+def run(args) -> dict:
+    if args.sync_bn and (not dist.is_initialized() or args.no_data_parallel):
+        raise ValueError(
+            "--sync-bn reduces BN statistics over the ranks of the data-parallel step: it needs a process "
+            "group (torchrun, or COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID) and no --no-data-parallel"
+        )
     device = resolve_device(args.device)
     path, C_index, low_level_layer, genotype = resolve_arch(args, args.genotype)
 
@@ -76,6 +94,8 @@ def main(argv=None):
         dtype=torch.bfloat16 if args.bf16 else None, remat=args.remat,
     )
     init_params(model, torch.Generator().manual_seed(args.seed))
+    if args.sync_bn:
+        set_bn_group(model, dist.group.WORLD)
 
     weight = None
     if args.use_balanced_weights:
@@ -98,10 +118,11 @@ def main(argv=None):
         ft=args.ft,
         device_augment=args.device_augment,
         crop_size=tuple(args.crop_size) if args.device_augment else None,
+        data_parallel=not args.no_data_parallel,
     )
     trainer = Trainer(model, train_loader, val_loader, cfg, class_weight=weight, device=device, seed=args.seed)
     result = trainer.fit()
-    result["experiment_dir"] = trainer.saver.experiment_dir
+    result["experiment_dir"] = trainer.experiment_dir
     print(json.dumps({k: v for k, v in result.items() if k != "step_ms"}, default=float))
     return result
 

@@ -24,7 +24,7 @@ from ..runtime import resolve_device
 from ..train.edm_trainer import make_edm_dataset, train_edm
 from ..utils.initialize import init_params
 from ..utils.saver import Saver, restore_checkpoint
-from .common import add_common_args, reject_unported, resolve_arch
+from .common import add_common_args, resolve_arch
 
 
 def build_parser():
@@ -41,7 +41,6 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    reject_unported(args)
     device = resolve_device(args.device)
     path, C_index, low_level_layer, genotype = resolve_arch(args, args.genotype)
 

@@ -9,8 +9,18 @@ statistics. Training normalizes with the batch statistics over (N, H, W),
 taken in fp32 whatever the input dtype, with the biased variance, and
 blends them into the running statistics as PyTorch and the JAX package do:
 ``running = (1 - m) * running + m * batch``, m = 0.1, with the unbiased
-variance (factor n / max(n - 1, 1), n = N*H*W). Cross-replica statistics
-(``--sync-bn``) are not ported yet (ROADMAP Queue 1 item 12).
+variance (factor n / max(n - 1, 1), n = N*H*W).
+
+Cross-replica statistics (``--sync-bn``, the data-parallel search; JAX
+``axis_name=DATA_AXIS``): ``set_bn_group(model, group)`` gives every
+BatchNorm of a model a process group. In training mode each rank then
+takes the fp32 mean and mean of squares of its own rows, averages both
+over the group, normalizes with JAX's one-pass variance max(E[x²] −
+E[x]², 0) of those averages and blends the running statistics with the
+unbiased factor over the global count n = N*H*W·world; its backward
+all-reduces the two per-channel sums of the input gradient
+(``_CrossReplicaBatchNorm``). ``torch.nn.SyncBatchNorm`` is not used: it
+refuses CPU tensors, on which the multi-process tests run.
 """
 from __future__ import annotations
 
@@ -54,6 +64,7 @@ class BatchNorm(nn.Module):
         self.epsilon = epsilon
         self.affine = affine
         self.dtype = dtype
+        self.group = None  # set_bn_group: statistics over this process group
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
         if affine:
@@ -77,6 +88,8 @@ class BatchNorm(nn.Module):
             y = F.batch_norm(x, self.mean, self.var, scale, bias,
                              training=False, momentum=0.0, eps=self.epsilon)
             return y.to(self.dtype or x.dtype)
+        if self.group is not None:
+            return self._cross_replica(x, scale, bias)
         # The kernel blends the batch statistics into copies of the running
         # ones (its backward keeps the tensors it was given), then the
         # buffers take them in place, which bumps their versions: the
@@ -96,3 +109,68 @@ class BatchNorm(nn.Module):
                     self.mean.lerp_(x.reshape(-1).float(), self.momentum)
                     self.var.mul_(1.0 - self.momentum)
         return y.to(self.dtype or x.dtype)
+
+    def _cross_replica(self, x, scale, bias) -> torch.Tensor:
+        """Training mode over the group (JAX ops/norm.py:58-75)."""
+        if not self.affine:  # the backward reads the per-channel sums off the affine gradients
+            scale, bias = torch.ones_like(self.mean), torch.zeros_like(self.mean)
+        y = _CrossReplicaBatchNorm.apply(x, scale, bias, self)
+        return y.to(self.dtype or x.dtype)
+
+
+class _CrossReplicaBatchNorm(torch.autograd.Function):
+    """BN over the rows of every rank of ``bn.group``, in few launches: each
+    rank's fp32 mean and E[x²] (one reduction), one all-reduce of both, the
+    one-pass variance, and the normalization as one eval-mode
+    ``batch_norm`` with the global statistics. The backward takes the
+    per-channel sums Σdy and Σdy·x̂ from one eval-mode
+    ``native_batch_norm_backward`` (its affine gradients), all-reduces
+    them, and adds the global terms as one more eval-mode ``batch_norm``:
+    dx = k·dy − k·Σdy/n − x̂·k·Σ(dy·x̂)/n, k = scale·invstd, x̂ = (x −
+    mean)·invstd, n the global count. The scale and bias gradients stay
+    each rank's own (the step averages them)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, bn):
+        if x.is_cuda:  # Welford mean and 1/sqrt(var + eps) in fp32, one kernel
+            mean, invstd = torch.batch_norm_stats(x, bn.epsilon)
+            var = invstd.pow(-2).sub_(bn.epsilon)
+        else:
+            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
+        moments = torch.stack([mean, torch.addcmul(var, mean, mean)])
+        torch.distributed.all_reduce(moments, group=bn.group)
+        mean, mean_sq = moments.div_(torch.distributed.get_world_size(bn.group))
+        var = torch.addcmul(mean_sq, mean, mean, value=-1.0).clamp_(min=0.0)
+        n = x.numel() // x.shape[1] * torch.distributed.get_world_size(bn.group)
+        if not _frozen_stats:
+            bn.mean.lerp_(mean, bn.momentum)
+            bn.var.lerp_(var * (n / max(n - 1.0, 1.0)), bn.momentum)
+        ctx.save_for_backward(x, scale, mean, var)
+        ctx.bn, ctx.n = bn, n
+        return torch.batch_norm(x, scale, bias, mean, var, False, 0.0, bn.epsilon, torch.backends.cudnn.enabled)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale, mean, var = ctx.saved_tensors
+        bn, n = ctx.bn, ctx.n
+        invstd = torch.rsqrt(var + bn.epsilon)
+        # eval mode: the global statistics are the running ones (the CUDA
+        # kernel wants the saved ones defined too: the same)
+        dx, d_scale, d_bias = torch.ops.aten.native_batch_norm_backward(
+            dy, x, scale, mean, var, mean, invstd, False, bn.epsilon, [True, True, True])
+        sums = torch.stack([d_bias, d_scale])  # Σdy, Σdy·x̂ of this rank
+        torch.distributed.all_reduce(sums, group=bn.group)
+        coef = sums.mul_(scale * invstd * (-1.0 / n))  # (−k·Σdy/n, −k·Σdy·x̂/n)
+        # (x − mean)·invstd·w + b with w = −k·Σdy·x̂/n, b = −k·Σdy/n
+        dx.add_(torch.batch_norm(x, coef[1], coef[0], mean, var, False, 0.0, bn.epsilon,
+                                 torch.backends.cudnn.enabled))
+        return dx, d_scale, d_bias, None
+
+
+def set_bn_group(model: nn.Module, group) -> nn.Module:
+    """Every BatchNorm of ``model`` takes its training statistics over
+    ``group`` (None: its own batch again)."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.group = group
+    return model

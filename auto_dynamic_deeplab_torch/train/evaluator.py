@@ -12,10 +12,14 @@ and mIoU of the two are the same. The average confidence is each image's
 first decision's, which is what the fused program returns (its
 ``descend`` carries the current stage's value up), in both modes;
 ``DynamicInferenceEngine.infer`` returns the last decision's, as JAX
-``infer`` does. The two differ from three exits on.
+``infer`` does. The two differ from three exits on. ``pipeline_devices``
+>= 2 runs the segment loop split over that many devices
+(``parallel.pipeline.PipelinedDynamicInference``), whose confidence is the
+last decision's, as the JAX evaluator reports it there.
 """
 from __future__ import annotations
 
+import time
 from typing import Dict
 
 import numpy as np
@@ -78,7 +82,18 @@ class Evaluation:
         confidence: str = "edm",
         warmup_shape=None,
         fused: bool = True,
+        pipeline_devices: int = 0,
     ) -> Dict:
+        def segment_loop(x, threshold, confidence):
+            logits, exit_idx, dt, confs = self.engine._infer(x, threshold, confidence)
+            return logits, exit_idx, dt, confs[0] if confs else float("nan")
+
+        if pipeline_devices >= 2:
+            infer, fused = self._pipelined(pipeline_devices), False
+        else:
+            infer = self.engine.infer_fused if fused else segment_loop
+            if warmup_shape is not None and not fused:
+                self.engine.warmup(warmup_shape, confidence, threshold)
         evaluator = Evaluator(self.num_classes, self.device)
         latency = AverageMeter()
         conf_meter = AverageMeter()
@@ -86,14 +101,7 @@ class Evaluation:
         early_exits = 0
         exit_histogram = [0] * len(self.model.exit_layers)
 
-        def segment_loop(x, threshold, confidence):
-            logits, exit_idx, dt, confs = self.engine._infer(x, threshold, confidence)
-            return logits, exit_idx, dt, confs[0] if confs else float("nan")
-
-        infer = self.engine.infer_fused if fused else segment_loop
-        if warmup_shape is not None and not fused:
-            self.engine.warmup(warmup_shape, confidence, threshold)
-        warmed = fused or warmup_shape is not None
+        warmed = fused or warmup_shape is not None or pipeline_devices >= 2
         first = fused
         for batch in loader:
             images, labels = batch["image"], batch["label"]
@@ -106,7 +114,7 @@ class Evaluation:
                 if first:  # the first fused call captures its graphs: time it again
                     logits, exit_idx, dt, conf = infer(x, threshold, confidence)
                     first = False
-                pred = logits.argmax(dim=1)[0]  # (N, C, H, W) logits
+                pred = logits.argmax(dim=1)[0].to(self.device)  # (N, C, H, W) logits
                 evaluator.add_batch(torch.as_tensor(labels[i]).to(self.device), pred)
                 latency.update(dt)
                 if not np.isnan(conf):
@@ -124,3 +132,35 @@ class Evaluation:
             "exit_histogram": exit_histogram,
             "n_images": n_images,
         }
+
+    def _pipelined(self, n: int):
+        """infer(x, threshold, confidence) through a pipeline over ``n``
+        devices: ``cuda:0``..``cuda:n-1`` (raises with fewer GPUs, where the
+        pipeline would silently take fewer stages), or ``n`` stages on the
+        CPU. One pipeline per input size, warmed up when built."""
+        from ..parallel.pipeline import PipelinedDynamicInference
+
+        if self.device.type == "cuda":
+            if torch.cuda.device_count() < n:
+                raise RuntimeError(
+                    f"pipeline_devices={n} requested but only {torch.cuda.device_count()} GPUs are visible"
+                )
+            devices = [torch.device("cuda", i) for i in range(n)]
+        else:
+            devices = [self.device] * n
+        pipes = {}
+
+        def infer(x, threshold, confidence):
+            size = tuple(x.shape[1:3])
+            if size not in pipes:
+                pipes[size] = PipelinedDynamicInference(
+                    self.model, size, devices, confidence, threshold, edm=self.edm, num_classes=self.num_classes)
+                pipes[size].warmup()
+            pipe = pipes[size]
+            pipe.synchronize()
+            t0 = time.perf_counter()
+            logits, exit_idx, conf = pipe.infer(x)
+            pipe.synchronize()
+            return logits, exit_idx, time.perf_counter() - t0, conf
+
+        return infer

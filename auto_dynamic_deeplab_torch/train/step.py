@@ -11,8 +11,16 @@ added to the raw gradient before the momentum buffer's update.
 (``add_decayed_weights`` + ``scale_by_adam`` + ``scale(-lr)``): L2 in the
 gradient before the moments, not AdamW's decoupled decay. The bf16 policy
 keeps fp32 parameters (the convs cast them) and, as in JAX, uses no loss
-scaler. One device: the data-parallel steps wait for ROADMAP Queue 1 item
-12.
+scaler.
+
+Data parallel (JAX: the ``shard_map`` steps with ``lax.pmean``): given a
+``DataMesh``, each rank runs the step on its own rows of the global batch,
+then the step's gradients and loss are averaged over the ranks in one flat
+all-reduce before the optimizer's step, so that every rank applies the
+same update. The model's BatchNorms reduce their statistics over the group
+when ``ops.norm.set_bn_group`` gave them one (``--sync-bn``). No
+``DistributedDataParallel``: the search's two steps differentiate two
+parameter sets of one model, and DDP's reducer is fixed at construction.
 """
 from __future__ import annotations
 
@@ -21,8 +29,24 @@ from typing import Iterable, List, Optional
 import numpy as np
 import torch
 
+from ..parallel.mesh import DataMesh
 from .loss import multi_exit_cross_entropy
 from .schedules import Schedule
+
+
+def average_over_mesh(params: List[torch.nn.Parameter], loss: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
+    """Every ``params`` gradient (a zero where the loss did not reach it,
+    as under jax.grad) and ``loss`` set to their means over the mesh, in
+    one all-reduce of one flat fp32 buffer; returns the averaged loss."""
+    grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+    flat = torch.cat([g.reshape(-1).float() for g in grads] + [loss.detach().float().reshape(1)])
+    torch.distributed.all_reduce(flat, group=mesh.group)
+    flat.div_(mesh.world)
+    at = 0
+    for p, g in zip(params, grads):
+        p.grad = flat[at:at + g.numel()].view_as(g).to(g.dtype)
+        at += g.numel()
+    return flat[at]
 
 
 def make_optimizer(
@@ -43,9 +67,12 @@ def make_arch_optimizer(
 
 
 class TrainStep:
-    """One single-device step of ``model`` on a batch: forward in training
-    mode, the multi-exit loss on (N, C, H, W) logits, backward, the
-    optimizer's step at lr = ``schedule(step)``, and ``step`` + 1.
+    """One step of ``model`` on a batch: forward in training mode, the
+    multi-exit loss on (N, C, H, W) logits, backward, the optimizer's step
+    at lr = ``schedule(step)``, and ``step`` + 1. With ``mesh`` the batch
+    is this rank's rows, and the gradients and the loss are averaged over
+    the mesh before the update (JAX ``make_train_step``); without, one
+    device (JAX ``make_single_device_train_step``).
 
     ``step`` counts the optimizer updates from 0 (the JAX TrainState's
     ``step``); ``__call__`` returns the loss as a 0-d device tensor, so a
@@ -57,10 +84,12 @@ class TrainStep:
         optimizer: torch.optim.Optimizer,
         schedule: Schedule,
         class_weight: Optional[np.ndarray] = None,
+        mesh: Optional[DataMesh] = None,
     ):
         self.model = model
         self.optimizer = optimizer
         self.schedule = schedule
+        self.mesh = mesh
         self.class_weight = None if class_weight is None else torch.as_tensor(
             class_weight, dtype=torch.float32, device=next(model.parameters()).device)
         self.step = 0
@@ -75,6 +104,8 @@ class TrainStep:
         loss = multi_exit_cross_entropy(outs, label, self.class_weight)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if self.mesh is not None:
+            loss = average_over_mesh([p for g in self.optimizer.param_groups for p in g["params"]], loss, self.mesh)
         self.optimizer.step()
         self.step += 1
         return loss.detach()
@@ -93,8 +124,9 @@ class TrainStep:
 
 
 class SearchSteps:
-    """The bilevel search steps of a supernet on one device (the JAX
-    package's single-device ``make_search_steps``): ``weight_step`` on a
+    """The bilevel search steps of a supernet (the JAX package's
+    ``make_search_steps``; with ``mesh``, its data-parallel form, each
+    step's gradients and loss averaged over the mesh): ``weight_step`` on a
     batch of the first half updates the weights with ``w_optimizer`` at lr
     = ``schedule(step)``; ``arch_step`` on a batch of the second half
     updates ``alphas`` / ``betas`` with ``a_optimizer``. Both run the
@@ -119,8 +151,10 @@ class SearchSteps:
         schedule: Schedule,
         class_weight: Optional[np.ndarray] = None,
         loss_reduce: str = "mean",
+        mesh: Optional[DataMesh] = None,
     ):
         self.model = model
+        self.mesh = mesh
         self.w_optimizer, self.a_optimizer = w_optimizer, a_optimizer
         self.schedule = schedule
         self.loss_reduce = loss_reduce
@@ -142,6 +176,8 @@ class SearchSteps:
         finally:
             for p in frozen:
                 p.requires_grad_(True)
+        if self.mesh is not None:
+            loss = average_over_mesh(params, loss, self.mesh)
         for p in params:  # jax.grad gives a parameter the loss does not reach a zero
             if p.grad is None:  # gradient, so the decay still reaches it
                 p.grad = torch.zeros_like(p)

@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases 1,2,3,10,9  # training, with K1's and K2's checks
     python3 chip_smoke.py --phases 1,11        # NAS search
     python3 chip_smoke.py --phases 1,2,3,12,9  # the input pipeline, with K1's and K2's checks
+    python3 chip_smoke.py --phases 1,13        # the parallel modes
 
 Phases, each printing JSON lines and raising on failure:
   1. device: the card, its power limit and the kernels' build time (every
@@ -108,14 +109,30 @@ Phases, each printing JSON lines and raising on failure:
      two_train_seg halves at the net_supernet recipe, batch 4 (no kernel);
      cli.train_edm --dataset cityscapes_edm (one K1 and one K2 a frame) and
      cli.evaluate --dynamic --confidence edm on the val frames;
+  13. the parallel modes, run before the summary: in a child process
+     under a world-1 NCCL process group (``parallel.distributed.initialize``
+     from MASTER_ADDR / WORLD_SIZE / RANK), one fp32 TrainStep of a small
+     ADD with cross-replica BN against the single-device step
+     (PARALLEL_TOL), cli.train --sync-bn on the flagship at 769x769, batch
+     4 (1 epoch of 6 steps, validating the 8 synthetic images at batch 1:
+     one K1 an image, one K2 an exit) with its median step ms beside phase
+     10's, and cli.search at the net_supernet recipe (batch 16, two
+     bilevel iterations) under the group and with --no-dp, whose first
+     weight-step losses must agree and which run no kernel; then
+     PipelinedDynamicInference on the flagship at 1025x2049 over two
+     stages on cuda:0, fp32 and bf16, xla and flat: at entropy thresholds
+     1.01 and 0 the same exit and bitwise-equal logits as the engine's
+     segment loop, the p50 of 20 images (after 3) early exit and full
+     depth, and each block's K1, K2 and K3-K6 launches against the
+     routes; last, dynamic_inference(pipeline_devices=GPUs+1) must raise;
   9. the kernels summary line; each kernel's launches are those phases 6,
      10 and 12 ran on the card: its wrapper count in the static,
      segment-loop and training runs, and in the fused runs the profiler's
      count of the warm-up and the replays (not the capture, which runs
      nothing); ``train_path_launches`` are phase 10's alone,
      ``search_path_launches`` phase 11's, ``data_path_launches`` phase
-     12's. A run of a subset of the phases lists the kernels whose checks
-     (2-4) ran.
+     12's, ``parallel_path_launches`` phase 13's. A run of a subset of the
+     phases lists the kernels whose checks (2-4) ran.
 The last lines are the kernels summary, the card's name and power limit
 from nvidia-smi, and {"ok": true, "device": {...}}. Without a GPU, or
 without the port beside it, the script exits non-zero and prints no
@@ -1264,6 +1281,7 @@ def phase_train(ctx):
             wall = time.perf_counter() - t0
             counts = _counts(kernels)
             step_ms = statistics.median(result["step_ms"][1:])
+            ctx[f"train_{name}_step_ms"] = step_ms
             epochs = int(extra[1])
             row = {
                 "run": f"cli.train {name}", "hw": list(TRAIN_HW), "batch": TRAIN_BATCH, "epochs": epochs,
@@ -1821,6 +1839,212 @@ def phase_input_pipeline(ctx):
     ctx["data_launches"] = dict(total)
 
 
+PARALLEL_TRAIN_IMAGES = 24  # cli.train --sync-bn: 1 epoch of 6 steps of batch 4
+PARALLEL_SEARCH = ["--network", "net_supernet", "--F", "20", "--B", "5", "--C", "2", "--batch-size", "16",
+                   "--synthetic-crop", "321", "321", "--synthetic-length", "32", "--epochs", "1",
+                   "--alpha-epoch", "0", "--lr", "0.05", "--min-lr", "0.003", "--arch-lr", "1e-3",
+                   "--weight-decay", "8e-4", "--arch-weight-decay", "1e-3", "--seed", "2", "--workers", "8",
+                   "--device", "cuda"]
+# world 1 against one device: the cross-replica BN takes JAX's one-pass
+# variance max(E[x²] − E[x]², 0), cuDNN's training BN another; the first
+# step's loss and the search's first weight-step loss |Δ| ≤ 1e-5
+# relative, the state after one step ≤ 1e-3·max(1, max|ref|) per tensor
+# (the tiny model's fp32 gradient is ill-conditioned: tests/test_torch_train.py)
+PARALLEL_TOL = {"loss": 1e-5, "state": 1e-3}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _parallel_child():
+    """Phase 13's process-group part, in a process of its own under a
+    world-1 NCCL group (``parallel.distributed.initialize`` from the
+    environment): one TrainStep with cross-replica BN against the
+    single-device step, cli.train --sync-bn on the flagship, cli.search
+    under the group and with --no-dp. Prints one JSON line per run."""
+    import torch.distributed as dist
+
+    from auto_dynamic_deeplab_torch.cli import search, train
+    from auto_dynamic_deeplab_torch.ops.norm import set_bn_group
+    from auto_dynamic_deeplab_torch.parallel import destroy, initialize, make_data_mesh
+    from auto_dynamic_deeplab_torch.runtime import resolve_device
+    from auto_dynamic_deeplab_torch.train.schedules import lr_schedule
+    from auto_dynamic_deeplab_torch.train.step import TrainStep, make_optimizer
+
+    rank, world = initialize(device="cuda", timeout_s=300)
+    resolve_device("cuda")  # TF32 off
+    kernels = _all_kernels()
+    try:
+        if (rank, world, dist.get_backend()) != (0, 1, "nccl"):
+            raise AssertionError(f"want a world-1 NCCL group, got rank {rank} of {world}, {dist.get_backend()}")
+        # one fp32 step with the BNs over the group against the single-device step
+        g = torch.Generator().manual_seed(4)
+        image = torch.randn(2, 33, 65, 3, generator=g).cuda()
+        label = torch.randint(0, 7, (2, 33, 65), generator=g).cuda()
+        label[:, :2] = 255
+        single, grouped = (m.cuda() for m in _tiny_train_models())
+        grouped.load_state_dict(single.state_dict())
+        mesh = make_data_mesh(2)
+        set_bn_group(grouped, mesh.group)
+        losses = [TrainStep(m, make_optimizer(m.parameters()), lr_schedule("poly", 0.02, 1, 4), mesh=ms)(image, label)
+                  .item() for m, ms in ((single, None), (grouped, mesh))]
+        row = {"check": "world1_nccl_train_step_vs_single_device", "losses": losses,
+               "loss_rel_err": abs(losses[1] - losses[0]) / abs(losses[0]),
+               "state_err": _state_err(grouped, single.cpu()), "tol": PARALLEL_TOL}
+        print(json.dumps({"phase": "parallel", **row}), flush=True)
+        if not (row["loss_rel_err"] <= PARALLEL_TOL["loss"] and row["state_err"] <= PARALLEL_TOL["state"]):
+            raise AssertionError(f"world-1 NCCL step against the single-device step: {row}")
+        del single, grouped
+
+        with tempfile.TemporaryDirectory() as tmp:
+            argv = ["--sync-bn", "--synthetic-crop", *map(str, TRAIN_HW), "--synthetic-length",
+                    str(PARALLEL_TRAIN_IMAGES), "--batch-size", str(TRAIN_BATCH), "--test-batch-size", "1",
+                    "--epochs", "1", "--eval-interval", "1", "--workers", "8", "--run-dir", tmp]
+            for f in kernels.values():
+                f.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            result = train.main(argv)
+            counts = _counts(kernels)
+            n_val = max(8, PARALLEL_TRAIN_IMAGES // 4)  # the synthetic validation set
+            row = {"run": "cli.train --sync-bn (world-1 NCCL)", "argv": argv, "step_ms_all": result["step_ms"],
+                   "step_ms_median_after_first": statistics.median(result["step_ms"][1:]),
+                   "train_loss": result["train_loss"], "val_miou": result["miou"], "n_val": n_val,
+                   "peak_gb": torch.cuda.max_memory_allocated() / 2**30, "wall_s": time.perf_counter() - t0,
+                   "launches": counts}
+            print(json.dumps({"phase": "parallel", **row}), flush=True)
+            want = {"fused_stems": n_val, "entropy_argmax_triton": 2 * n_val}
+            if any(counts[k] != v for k, v in want.items()) or not np.isfinite(result["train_loss"]):
+                raise AssertionError(f"cli.train --sync-bn: launches {counts}, want {want}; {row}")
+
+            first = {}
+            for name, extra in (("data-parallel (world-1 NCCL)", []), ("--no-dp", ["--no-dp"])):
+                for f in kernels.values():
+                    f.launches = 0
+                t0 = time.perf_counter()
+                result = search.main(PARALLEL_SEARCH + ["--run-dir", tmp, "--checkname", f"s{len(first)}"] + extra)
+                counts = _counts(kernels)
+                first[name] = result["step_losses"][0]
+                row = _search_row(f"cli.search net_supernet {name}", PARALLEL_SEARCH + extra, result,
+                                  time.perf_counter() - t0, 16, counts)
+                row["step_losses"] = result["step_losses"]
+                print(json.dumps({"phase": "parallel", **row}), flush=True)
+                if any(counts.values()):
+                    raise AssertionError(f"a kernel ran on the search path: {counts}")
+            a, b = first.values()
+            row = {"check": "search_first_weight_step_loss", "losses": first, "rel_err": abs(a - b) / abs(b),
+                   "tol": PARALLEL_TOL["loss"]}
+            print(json.dumps({"phase": "parallel", **row}), flush=True)
+            if row["rel_err"] > PARALLEL_TOL["loss"]:
+                raise AssertionError(f"the data-parallel search's first loss is not the single-device one: {row}")
+    finally:
+        destroy()
+
+
+def _pipeline_runs(ctx, dtype, cell_exec, total):
+    """The flagship pipelined over two stages on cuda:0 against the
+    engine's segment loop, then its p50s."""
+    from auto_dynamic_deeplab_torch.parallel import PipelinedDynamicInference
+    from auto_dynamic_deeplab_torch.runtime import resolve_device
+    from auto_dynamic_deeplab_torch.train.dynamic import DynamicInferenceEngine
+
+    dev = resolve_device("cuda")
+    dname = str(dtype).split(".")[-1]
+    kernels = _all_kernels()
+    model = _flagship(dtype, flat_eval=cell_exec == "flat").to(dev)
+    engine = DynamicInferenceEngine(model, num_classes=19)
+    shape = (1, *FULL_HW, 3)
+    engine.warmup(shape, "entropy", 0.0)
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(shape, generator=g, device=dev)
+    row = {"dtype": dname, "cell_exec": cell_exec, "hw": list(FULL_HW), "devices": ["cuda:0", "cuda:0"],
+           "checks": [], "latency": {}, "nvidia_smi": ctx["smi"]}
+    for name, thr, want_exit in (("early_exit", 1.01, 0), ("full_depth", 0.0, 1)):
+        pipe = PipelinedDynamicInference(model, FULL_HW, ["cuda:0", "cuda:0"], "entropy", thr, num_classes=19)
+        if [len(st["programs"]) for st in pipe.stages] != [1, 1]:
+            raise AssertionError(f"two stages of one segment each, got {pipe.stages}")
+        pipe.warmup()
+        want, k_want, _, c_want = engine.infer(x, thr, "entropy")
+        got, k_got, c_got = pipe.infer(x)
+        torch.cuda.synchronize()
+        equal = torch.equal(got, want)
+        row["checks"].append({"threshold": thr, "exit": k_got, "confidence": c_got, "bitwise_equal": equal})
+        if not (k_got == k_want == want_exit and c_got == c_want and equal):
+            raise AssertionError(f"pipeline {dname} {cell_exec} thr={thr}: exit {k_got} conf {c_got}, segment loop "
+                                 f"exit {k_want} conf {c_want}, logits max |diff| "
+                                 f"{(got.float() - want.float()).abs().max().item()}")
+        for f in kernels.values():
+            f.launches = 0
+        times = []
+        for i in range(3 + 20):
+            xi = torch.randn(shape, generator=g, device=dev)
+            pipe.synchronize()
+            t0 = time.perf_counter()
+            logits, k, _ = pipe.infer(xi)
+            pipe.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if k != want_exit or not torch.isfinite(logits).all():
+                raise AssertionError(f"pipeline {dname} {cell_exec} {name}: exit {k}")
+        counts = _counts(kernels)
+        want_counts = {n: 23 * v for n, v in _segments(dtype, cell_exec, 6 if want_exit == 0 else 12).items()}
+        if counts != {n: want_counts.get(n, 0) for n in counts}:
+            raise AssertionError(f"pipeline {dname} {cell_exec} {name}: launches {counts}, the routes predict "
+                                 f"{want_counts}")
+        total.update(counts)
+        row["latency"][name] = {"p50_ms": statistics.median(times[3:]), "min_ms": min(times[3:]),
+                                "max_ms": max(times[3:]), "n": 20, "launches_23_images": counts}
+        del pipe
+    emit({"phase": "parallel", "run": "PipelinedDynamicInference", **row})
+
+
+def phase_parallel(ctx):
+    """The parallel modes: the process-group part in a child process under
+    a world-1 NCCL group, then the pipeline and the evaluator's refusal."""
+    from auto_dynamic_deeplab_torch.data import make_data_loader
+    from auto_dynamic_deeplab_torch.train.evaluator import Evaluation
+
+    if "smi" not in ctx:
+        ctx["smi"] = nvidia_smi_line()
+    total = Counter()
+    env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()), WORLD_SIZE="1", RANK="0",
+               LOCAL_RANK="0")
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--parallel-child"], env=env,
+                          capture_output=True, text=True, timeout=900)
+    rows = []
+    for line in proc.stdout.splitlines():
+        if line.startswith('{"phase": "parallel"'):
+            rows.append(json.loads(line))
+            print(line, flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"the world-1 NCCL child failed ({proc.returncode}): {proc.stderr[-6000:]}")
+    for row in rows:
+        total.update(row.get("launches", {}))
+        if row.get("run", "").startswith("cli.train"):
+            emit({"phase": "parallel", "check": "sync_bn_train_step_vs_phase_10",
+                  "world1_step_ms": row["step_ms_median_after_first"],
+                  "single_device_step_ms": ctx.get("train_fp32_step_ms"), "nvidia_smi": ctx["smi"]})
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for cell_exec in ("xla", "flat"):
+            _pipeline_runs(ctx, dtype, cell_exec, total)
+
+    # two pipeline stages on a one-card machine: the evaluator raises
+    _, val, _ = make_data_loader("synthetic", 1, synthetic_length=8, synthetic_crop=(65, 65), num_workers=1)
+    evaluation = Evaluation(_flagship(), 19)
+    try:
+        evaluation.dynamic_inference(val, confidence="entropy", pipeline_devices=torch.cuda.device_count() + 1)
+    except RuntimeError as e:
+        emit({"phase": "parallel", "check": "pipeline_devices_above_gpus_raises", "error": str(e)})
+    else:
+        raise AssertionError("dynamic_inference(pipeline_devices > GPUs) did not raise")
+    ctx["parallel_launches"] = dict(total)
+
+
 def phase_kernels(ctx):
     """The kernels line; a run of a subset of the phases lists the kernels
     whose checks (phases 2-4) ran."""
@@ -1833,6 +2057,7 @@ def phase_kernels(ctx):
             "launches": launches.get(name, 0), "train_path_launches": ctx.get("train_launches", {}).get(name, 0),
             "search_path_launches": ctx.get("search_launches", {}).get(name, 0),
             "data_path_launches": ctx.get("data_launches", {}).get(name, 0),
+            "parallel_path_launches": ctx.get("parallel_launches", {}).get(name, 0),
             "max_abs_err": main["max_abs_err"],
             "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main.get("library_ms"), "dtype": main["dtype"],
@@ -1861,17 +2086,21 @@ def phase_kernels(ctx):
 PHASES = {
     1: phase_device, 2: phase_k1, 3: phase_k2, 4: phase_cells, 5: phase_model,
     6: phase_main_path, 7: phase_engine, 8: phase_trained, 9: phase_kernels, 10: phase_train,
-    11: phase_search, 12: phase_input_pipeline,
+    11: phase_search, 12: phase_input_pipeline, 13: phase_parallel,
 }
 
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--phases", default="1,2,3,4,5,6,7,8,10,11,12,9")
+    p.add_argument("--phases", default="1,2,3,4,5,6,7,8,10,11,12,13,9")
+    p.add_argument("--parallel-child", action="store_true", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: no GPU", file=sys.stderr)
         return 2
+    if args.parallel_child:
+        _parallel_child()
+        return 0
     phases = [int(v) for v in args.phases.split(",")]
     ctx = {}
     t0 = time.perf_counter()

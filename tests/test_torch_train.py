@@ -512,9 +512,14 @@ def test_cli_train_edm_evaluate_end_to_end(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", ["--sync-bn"])
-def test_cli_train_rejects_unported_flags(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        pt_cli_train.main(_CLI + [flag])
+def test_cli_train_rejects_unported_flags(flag, tmp_path):
+    """--sync-bn reduces BN statistics over a process group's ranks: with
+    no group (or with --no-data-parallel) there is nothing to reduce over,
+    and it raises rather than train with per-process BN
+    (tests/test_torch_parallel.py runs it under torchrun)."""
+    for extra in ([], ["--no-data-parallel"]):
+        with pytest.raises(ValueError, match="needs a process group"):
+            pt_cli_train.main(_CLI + [flag, "--run-dir", str(tmp_path)] + extra)
 
 
 def test_training_entry_points_default_to_cuda(tmp_path):
