@@ -8,7 +8,15 @@ cli.train_edm write them.
 
     python -m auto_dynamic_deeplab_torch.cli.evaluate --dynamic \\
         --confidence entropy --threshold 0.5 --synthetic-crop 1025 2049 \\
-        [--cell-exec flat] [--resume DIR] [--edm-resume DIR] [--pipeline-devices 2]
+        [--cell-exec xla|packed|flat|flat-packed|dense-sep] [--flops] \\
+        [--resume DIR] [--edm-resume DIR] [--pipeline-devices 2]
+
+--cell-exec picks how the cells run in eval, as in the JAX CLI: plain ops
+(xla), the wave-packed schedule with block-diagonal 1x1s (packed,
+ops/packed.py), the hand-written cell kernels K3-K6 (flat), the flat DAG
+fed by the packed dense-tap projections (flat-packed), or every SepConv as
+two composed dense convs (dense-sep). --flops adds ``complexity``
+({flops, params, bytes_accessed} of one forward, utils/flops.py).
 
 --pipeline-devices N (>= 2) runs --dynamic as a pipeline over cuda:0..N-1
 (parallel/pipeline.py: each stage holds only its segments' modules), the
@@ -23,9 +31,11 @@ import os
 import torch
 
 from ..data import make_data_loader
+from ..data.loader import peek_batch
 from ..models import ADD, EDM, BaselineModel
 from ..runtime import resolve_device
 from ..train.evaluator import Evaluation
+from ..utils.flops import model_complexity
 from ..utils.initialize import init_params
 from ..utils.saver import restore_checkpoint
 from .common import add_common_args, resolve_arch
@@ -41,17 +51,32 @@ def build_parser():
     p.add_argument("--resume", default=None, help="stage-2 experiment dir")
     p.add_argument("--edm-resume", default=None, help="stage-3 experiment dir")
     p.add_argument("--genotype", default=None)
+    p.add_argument("--flops", action="store_true",
+                   help="add complexity: flops, params and bytes of one forward")
     p.add_argument(
         "--pipeline-devices", type=int, default=0,
         help=">=2: pipeline the dynamic-inference segments across this many devices "
         "(per-stage module partitioning, parallel/pipeline.py); raises with fewer GPUs",
     )
     p.add_argument(
-        "--cell-exec", default="xla", choices=["xla", "flat"],
-        help="cell execution: plain ops (xla), or each cell's DAG through the "
-        "hand-written cell kernels K3-K6 (flat; their plain versions on the CPU)",
+        "--cell-exec", default="xla", choices=list(CELL_EXEC),
+        help="eval-path cell execution: plain ops (xla), the wave-packed schedule "
+        "with block-diagonal 1x1s (packed, ops/packed.py), each cell's DAG through "
+        "the hand-written cell kernels K3-K6 (flat; their plain versions on the "
+        "CPU), both (flat DAG + packed dense-tap 1x1s), or the exact SepConv "
+        "dense-form rewrite (dense-sep)",
     )
     return p
+
+
+# --cell-exec -> the model's flags, as the JAX CLI maps them (cli/evaluate.py:65-70)
+CELL_EXEC = {
+    "xla": {},
+    "packed": {"packed_eval": True},
+    "flat": {"flat_eval": True},
+    "flat-packed": {"flat_eval": True, "packed_eval": True},
+    "dense-sep": {"dense_sep_eval": True},
+}
 
 
 def build(args):
@@ -70,7 +95,7 @@ def build(args):
 
     model_cls = ADD if args.network == "ADD" else BaselineModel
     model = model_cls(path, C_index, genotype, nclass, F=args.F, B=args.B,
-                      low_level_layer=low_level_layer, flat_eval=args.cell_exec == "flat")
+                      low_level_layer=low_level_layer, **CELL_EXEC[args.cell_exec])
     init_params(model, torch.Generator().manual_seed(args.seed))
     if args.resume:
         model.load_state_dict(restore_checkpoint(os.path.join(args.resume, "checkpoint"))[0]["model"])
@@ -96,6 +121,9 @@ def main(argv=None):
         )
     else:
         stats = evaluation.validate(val_loader)
+    if args.flops:
+        sample = peek_batch(val_loader)["image"]
+        stats["complexity"] = model_complexity(evaluation.model, (1, *sample.shape[1:]))
     stats["device"] = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     print(json.dumps(stats, default=float))
     return stats

@@ -40,7 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..nas.genotypes import PRIMITIVES
-from ..ops.primitives import avg_pool_3x3, max_pool_3x3
+from ..ops.primitives import avg_pool_3x3, max_pool_3x3, weights_key
 from ._build import load_library
 
 # op name -> (kind, k, dilation), as _EDGE_KINDS (cell_ops.py:534-540)
@@ -399,8 +399,7 @@ def edge_weights(op: nn.Module, name: str, dtype: torch.dtype):
     kind = EDGE_KINDS.get(name, ("",))[0]
     if kind not in ("sep", "dil"):
         return None
-    tensors = list(op.parameters()) + list(op.buffers())
-    key = (dtype, tuple((t.data_ptr(), t.device, -1 if t.is_inference() else t._version) for t in tensors))
+    key = weights_key(op, dtype)
     cached = getattr(op, "_folded_edge", None)
     if cached is not None and cached[0] == key:
         return cached[1]

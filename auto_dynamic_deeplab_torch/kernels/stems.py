@@ -18,6 +18,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..ops.primitives import weights_key
 from ._build import load_library
 from .cell_ops import SM_COUNT, SM_SMEM, SMEM_LIMIT  # the H100's SMs and shared memory
 
@@ -155,8 +156,7 @@ def stem_weights(stems, dtype: torch.dtype) -> StemWeights:
     and packed again only when a parameter or BN statistic changed (in
     place, moved or replaced): packing is about twenty small launches, on
     every image otherwise."""
-    tensors = list(stems.parameters()) + list(stems.buffers())
-    key = (dtype, tuple((t.data_ptr(), t.device, -1 if t.is_inference() else t._version) for t in tensors))
+    key = weights_key(stems, dtype)
     cached = getattr(stems, "_packed_stems", None)
     if cached is not None and cached[0] == key:
         return cached[1]

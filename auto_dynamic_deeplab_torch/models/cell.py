@@ -1,9 +1,21 @@
 """Decoded (fixed-genotype) cell (models/cell.py of the JAX package; the
-reference's ADD.py Cell, :14-116). The B-block DAG runs op by op
-(``flat_eval=False``), or with ``flat_eval=True`` through
-``kernels.cell_ops.run_dag``: the hand-written cell kernels K3-K6 on a
-CUDA tensor, their plain versions on a CPU tensor (the JAX package's
-``--cell-exec flat``, models/cell.py:172-203, without its batch-1 limit).
+reference's ADD.py Cell, :14-116). The B-block DAG runs op by op, or in
+eval mode by one of the JAX package's ``--cell-exec`` variants:
+
+  * ``flat_eval``: through ``kernels.cell_ops.run_dag``, the hand-written
+    cell kernels K3-K6 on a CUDA tensor, their plain versions on a CPU
+    tensor (models/cell.py:172-203, without its batch-1 limit);
+  * ``packed_eval``: the wave-packed schedule of ``ops/packed.py``, and the
+    dense taps' projections as one block-diagonal 1x1 plus the fuse 1x1;
+    with ``flat_eval`` too (``flat-packed``) the packed projections feed
+    the flat DAG;
+  * ``dense_sep_eval``: every SepConv as two composed dense convs
+    (``SepConv(dense_form=True)``).
+
+Training runs the per-op modules whatever ``packed_eval`` and
+``dense_sep_eval`` say (the same parameters); ``flat_eval`` refuses it.
+The packed weights are folded once per weight version and kept on the
+cell (``packed_weights``).
 
 A cell is a B-block DAG over states [s0, s1, block_0, ..., block_{B-1}];
 block i consumes edges offset..offset+len(states)-1 with
@@ -28,7 +40,8 @@ from torch import nn
 
 from ..kernels.cell_ops import run_dag
 from ..nas.genotypes import PRIMITIVES
-from ..ops.primitives import OPS, FactorizedReduce, ReLUConvBN
+from ..ops.packed import packed_relu_conv_bn_1x1, pw_group, run_packed_dag, schedule_waves, wave_weights
+from ..ops.primitives import OPS, FactorizedReduce, ReLUConvBN, weights_key
 from ..ops.resize import resize_bilinear, scale_dimension
 
 GenotypeRows = Tuple[Tuple[int, int], ...]
@@ -62,6 +75,8 @@ class FixedCell(nn.Module):
       dense_out: also return dense_process(concat) (ADD.py:56-57,:114).
       flat_eval: run the DAG through ``run_dag`` (same parameters); eval
         mode only, since the kernels fold eval-mode BN.
+      packed_eval: in eval mode, the packed DAG and dense-tap projections.
+      dense_sep_eval: in eval mode, the SepConvs in their dense form.
     """
 
     def __init__(
@@ -77,10 +92,14 @@ class FixedCell(nn.Module):
         affine: bool = True,
         dtype: Optional[torch.dtype] = None,
         flat_eval: bool = False,
+        packed_eval: bool = False,
+        dense_sep_eval: bool = False,
     ):
         super().__init__()
         self.B = B
+        self.dtype = dtype
         self.flat_eval = flat_eval
+        self.packed_eval = packed_eval
         self.downup_sample = downup_sample
         self.dense_in = len(dense_in_channels) > 0
         self.num_dense_in = len(dense_in_channels)
@@ -101,7 +120,33 @@ class FixedCell(nn.Module):
         self.assignment = edge_op_assignment(as_genotype_rows(genotype))
         self.selected = dict(self.assignment)
         for k, (_, op) in enumerate(self.assignment):
-            self.add_module(f"ops_{k}", OPS[PRIMITIVES[op]](C_out, 1, **kw))
+            name = PRIMITIVES[op]
+            okw = dict(kw, dense_form=True) if dense_sep_eval and name.startswith("sep_conv") else kw
+            self.add_module(f"ops_{k}", OPS[name](C_out, 1, **okw))
+        self.waves = schedule_waves(self.assignment, B)
+
+    def _ops(self):
+        return [getattr(self, f"ops_{k}") for k in range(len(self.assignment))]
+
+    def packed_weights(self, dtype: torch.dtype) -> dict:
+        """The packed path's folded weights in ``dtype``: {"waves": the DAG's
+        conv groups (unless ``flat_eval`` runs the DAG), "taps" and "fuse":
+        the dense-tap projections}. Kept on the cell and folded again only
+        when a weight or BN statistic changed (training, ``load_state_dict``,
+        a move): folding is tens of small launches a cell."""
+        key = weights_key(self, dtype)
+        cached = getattr(self, "_packed", None)
+        if cached is not None and cached[0] == key:
+            return cached[1]
+        with torch.no_grad():
+            w = {}
+            if not self.flat_eval:
+                w["waves"] = wave_weights(self.waves, self._ops(), dtype)
+            if self.dense_in:
+                w["taps"] = pw_group([getattr(self, f"pre_{i}") for i in range(self.num_dense_in)], dtype)
+                w["fuse"] = pw_group([self.pre_preprocess_1x1], dtype)
+        self._packed = (key, w)
+        return w
 
     def forward(self, s0, s1: torch.Tensor):
         """s0 is a tensor, or the list of dense taps with ``dense_in``.
@@ -112,14 +157,18 @@ class FixedCell(nn.Module):
             s1 = resize_bilinear(s1, target, align_corners=False)
         s1 = self.preprocess(s1)
         hw = s1.shape[2:]
+        packed = self.packed_weights(self.dtype or s1.dtype) if self.packed_eval and not self.training else None
         if self.dense_in:
             if len(s0) != self.num_dense_in:
                 raise ValueError(f"expected {self.num_dense_in} dense taps, got {len(s0)}")
-            projected = [
-                getattr(self, f"pre_{i}")(resize_bilinear(tap, hw, align_corners=False))
-                for i, tap in enumerate(s0)
-            ]
-            s0 = self.pre_preprocess_1x1(torch.cat(projected, dim=1))
+            taps = [resize_bilinear(tap, hw, align_corners=False) for tap in s0]
+            if packed is not None:
+                # all the taps' projections as one block-diagonal 1x1, then the fuse 1x1
+                projected = packed_relu_conv_bn_1x1(taps, packed["taps"], self.dtype)
+                s0 = packed_relu_conv_bn_1x1([projected], packed["fuse"], self.dtype)
+            else:
+                projected = [getattr(self, f"pre_{i}")(tap) for i, tap in enumerate(taps)]
+                s0 = self.pre_preprocess_1x1(torch.cat(projected, dim=1))
         else:
             if s0.shape[2] != s1.shape[2]:
                 s0 = resize_bilinear(s0, hw, align_corners=False)
@@ -131,8 +180,9 @@ class FixedCell(nn.Module):
                     "flat_eval cells run the cell kernels, which fold eval-mode BN: "
                     "train with flat_eval=False (the same parameters)"
                 )
-            ops = [getattr(self, f"ops_{k}") for k in range(len(self.assignment))]
-            concat = run_dag(s0, s1, self.assignment, self.B, ops)
+            concat = run_dag(s0, s1, self.assignment, self.B, self._ops())
+        elif packed is not None:
+            concat = torch.cat(run_packed_dag(s0, s1, self.waves, packed["waves"], self.B, self.dtype), dim=1)
         else:
             states = [s0, s1]
             k = 0

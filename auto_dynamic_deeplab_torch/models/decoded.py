@@ -82,6 +82,10 @@ class DecodedNet(nn.Module):
     cell rows; ``dense=True`` gives ADD's densely connected variant;
     ``flat_eval=True`` runs every cell's DAG through the cell kernels
     (``--cell-exec flat``) with the same parameters, in eval mode only;
+    ``packed_eval`` (``--cell-exec packed``; with ``flat_eval``,
+    ``flat-packed``) and ``dense_sep_eval`` (``dense-sep``) pick the JAX
+    package's other eval executions of the cells (models/cell.py), which
+    training ignores;
     ``remat=True`` checkpoints each cell in training (recomputed in
     backward: activation memory for FLOPs).
     """
@@ -100,6 +104,8 @@ class DecodedNet(nn.Module):
         dtype: Optional[torch.dtype] = None,
         flat_eval: bool = False,
         remat: bool = False,
+        packed_eval: bool = False,
+        dense_sep_eval: bool = False,
     ):
         super().__init__()
         arch = tuple(int(v) for v in network_arch)
@@ -129,7 +135,8 @@ class DecodedNet(nn.Module):
                 f"cell_{i}",
                 FixedCell(
                     genotype, B, c_out, downup, c_prev,
-                    dense_out=dense and i < n - 2, dtype=dtype, flat_eval=flat_eval, **kw,
+                    dense_out=dense and i < n - 2, dtype=dtype, flat_eval=flat_eval,
+                    packed_eval=packed_eval, dense_sep_eval=dense_sep_eval, **kw,
                 ),
             )
 
@@ -257,15 +264,27 @@ class DecodedNet(nn.Module):
         return logits, self.exit_feature(state, first)
 
 
-def _checkpointed(cell: nn.Module):
+@contextlib.contextmanager
+def _stacked(*managers):
+    with contextlib.ExitStack() as stack:
+        for m in managers:
+            stack.enter_context(m)
+        yield
+
+
+def _checkpointed(cell: nn.Module, contexts=None):
     """``cell`` whose activations are recomputed in backward instead of
     kept (JAX: ``nn.remat``); the recomputation leaves the BN running
-    statistics as the forward left them."""
+    statistics as the forward left them. ``contexts``, when given, makes
+    a fresh (forward, recompute) context pair for each call, as
+    ``torch.utils.checkpoint``'s ``context_fn`` does: a policy that keeps
+    some outputs (models/supernet.py ``remat_policy``)."""
 
-    def contexts():
-        return contextlib.nullcontext(), frozen_running_stats()
+    def pair():
+        fwd, rec = contexts() if contexts is not None else (contextlib.nullcontext(), contextlib.nullcontext())
+        return fwd, _stacked(rec, frozen_running_stats())
 
-    return lambda *args: checkpoint(cell, *args, use_reentrant=False, context_fn=contexts)
+    return lambda *args: checkpoint(cell, *args, use_reentrant=False, context_fn=pair)
 
 
 class EDM(nn.Module):

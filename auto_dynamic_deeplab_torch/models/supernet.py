@@ -20,7 +20,11 @@ Images come in NHWC; the trellis runs NCHW; ``forward`` returns one fp32
 logits tensor per exit, NHWC, or (N, C, H, W) with ``class_leading``.
 ``remat=True`` (the JAX default) recomputes each cell in backward instead
 of keeping its activations, with the BN running statistics left as the
-forward blended them. The level states are fp32 under a bf16 policy, as
+forward blended them. ``remat_policy`` (JAX :76-95) chooses what a
+recomputed cell keeps: None nothing; ``'dots'`` the outputs of its convs
+and matrix products (PyTorch's selective checkpointing, JAX
+``dots_saveable``); ``'offload_dots'`` the same outputs in pinned host
+memory, copied back for the recomputation. The level states are fp32 under a bf16 policy, as
 in the JAX package (the fp32 betas promote them there).
 """
 from __future__ import annotations
@@ -30,6 +34,7 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..nas.genotypes import PRIMITIVES, num_edges
 from ..ops.aspp import ASPPSearch
@@ -41,6 +46,60 @@ from .supernet_cell import TrellisCell
 
 NUM_LEVELS = 4
 ARCH_NAMES = ("alphas", "betas")
+
+# what 'dots' and 'offload_dots' keep: the cells' FLOPs are in their convs
+_aten = torch.ops.aten
+SAVED_OPS = (_aten.convolution.default, _aten.mm.default, _aten.addmm.default, _aten.bmm.default)
+
+
+class _Offload(TorchDispatchMode):
+    """Forward of a recomputed cell: a copy of each ``SAVED_OPS`` output
+    goes to (pinned, for a CUDA tensor) host memory."""
+
+    def __init__(self, store: list):
+        super().__init__()
+        self.store = store
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func in SAVED_OPS:
+            host = torch.empty_strided(out.size(), out.stride(), dtype=out.dtype, device="cpu",
+                                       pin_memory=out.is_cuda)
+            self.store.append((host.copy_(out, non_blocking=True), out.device))
+        return out
+
+
+class _Reload(TorchDispatchMode):
+    """Recomputation: each ``SAVED_OPS`` call returns the kept output,
+    copied back to its device, in the forward's order."""
+
+    def __init__(self, store: list):
+        super().__init__()
+        self.store = store
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in SAVED_OPS:
+            host, device = self.store.pop(0)
+            return host.to(device, non_blocking=True)
+        return func(*args, **(kwargs or {}))
+
+
+def _dots_contexts():
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+    return create_selective_checkpoint_contexts(list(SAVED_OPS))
+
+
+def _offload_contexts():
+    store: list = []
+    return _Offload(store), _Reload(store)
+
+
+REMAT_POLICIES = {
+    None: None,
+    "dots": _dots_contexts,
+    "offload_dots": _offload_contexts,
+}
 
 
 def normalize_betas(betas: torch.Tensor) -> torch.Tensor:
@@ -77,8 +136,21 @@ class TrellisSupernet(nn.Module):
         dense: bool = True,
         remat: bool = True,
         dtype: Optional[torch.dtype] = None,
+        remat_policy: Optional[str] = None,
     ):
         super().__init__()
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(
+                f"remat_policy={remat_policy!r}: expected one of "
+                f"{sorted(k for k in REMAT_POLICIES if k)} or None"
+            )
+        if remat_policy is not None and not remat:
+            raise ValueError(
+                f"remat_policy={remat_policy!r} requires remat=True — "
+                "without remat the policy is never applied and the expected "
+                "memory savings silently do not happen"
+            )
+        self.remat_policy = remat_policy
         L = num_layers
         bad = [s for s in exit_layers_cfg if not 0 <= s < L]
         if bad:
@@ -210,7 +282,9 @@ class TrellisSupernet(nn.Module):
 
         def run(i, lv, s0, down, same, up):
             cell = getattr(self, f"l{i}_c{lv}")
-            return (_checkpointed(cell) if remat else cell)(s0, down, same, up, alphas, choice)
+            if remat:
+                cell = _checkpointed(cell, REMAT_POLICIES[self.remat_policy])
+            return cell(s0, down, same, up, alphas, choice)
 
         def mix(*terms):  # sum of nb[idx] * branch in fp32
             out = None

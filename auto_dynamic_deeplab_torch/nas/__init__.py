@@ -1,3 +1,3 @@
-from .genotypes import AUTODEEPLAB_GENOTYPE, NETWORK_ARCH, PRIMITIVES, SEARCH_C_INDEX, num_edges
+from .genotypes import AUTODEEPLAB_GENOTYPE, NETWORK_ARCH, PRIMITIVES, SEARCH_C_INDEX, load_genotype, num_edges
 
-__all__ = ["AUTODEEPLAB_GENOTYPE", "NETWORK_ARCH", "PRIMITIVES", "SEARCH_C_INDEX", "num_edges"]
+__all__ = ["AUTODEEPLAB_GENOTYPE", "NETWORK_ARCH", "PRIMITIVES", "SEARCH_C_INDEX", "load_genotype", "num_edges"]

@@ -40,6 +40,15 @@ NETWORK_ARCH = {
 # C -> exit layer indices used by the search driver (search.py:81-88).
 SEARCH_C_INDEX = {2: [5], 3: [3, 7], 4: [2, 5, 8]}
 
+
+def load_genotype(path: str) -> np.ndarray:
+    """Load a (k, 2) [edge, op] genotype .npy (e.g. searched_arch/*/genotype*.npy)."""
+    g = np.load(path)
+    if g.ndim != 2 or g.shape[1] != 2:
+        raise ValueError(f"bad genotype shape {g.shape}")
+    return g.astype(np.int64)
+
+
 # The shipped searched cell (searched_arch/autodeeplab/genotype.npy).
 AUTODEEPLAB_GENOTYPE = np.array(
     [

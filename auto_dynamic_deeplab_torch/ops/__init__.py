@@ -1,4 +1,4 @@
-from .aspp import ASPPSearch, ASPPTrain
+from .aspp import ASPPLite, ASPPSearch, ASPPTrain
 from .confidence import confidence_max, normalized_shannon_entropy
 from .heads import DecoderHead, LowLevelConv
 from .norm import BatchNorm
@@ -18,6 +18,7 @@ from .primitives import (
 from .resize import resize_bilinear, resize_bilinear_cl, scale_dimension, scale_dimension_search
 
 __all__ = [
+    "ASPPLite",
     "ASPPSearch",
     "ASPPTrain",
     "BatchNorm",

@@ -1,6 +1,7 @@
 """ASPP heads (ops/aspp.py of the JAX package): the 5-branch ``ASPPTrain``
-of the decoded models (aspp_train.py:8-61 of the reference) and the
-3-branch ``ASPPSearch`` of the supernets' exits (operations.py:122-158).
+of the decoded models (aspp_train.py:8-61 of the reference), the
+3-branch ``ASPPSearch`` of the supernets' exits (operations.py:122-158)
+and ``ASPPLite`` (aspp_train.py:64-85; no model of the port uses it).
 
 The JAX package computes the large-dilation branches as one matmul plus
 shifted adds (``_ShiftedDilatedConv3x3``) and the final 1x1 over a virtual
@@ -17,7 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .norm import BatchNorm
-from .primitives import Conv2d
+from .primitives import Conv2d, ReLUConvBN
 from .resize import resize_bilinear
 
 
@@ -90,3 +91,28 @@ class ASPPSearch(nn.Module):
         yp = resize_bilinear(yp, x.shape[2:], align_corners=True)
         y = F.relu(self.concate_bn(self.concate_conv(torch.cat([y1, y2, yp], dim=1))))
         return self.final_conv(y)
+
+
+class ASPPLite(nn.Module):
+    """ASPP_Lite (aspp_train.py:64-85), the lightweight attention-gated
+    head: a 1x1 ReLUConvBN trunk gated by a sigmoid attention branch (49x49
+    avg pool at stride (16, 20) → 1x1 conv → sigmoid → upsample), upsampled
+    to ((h-1)*2+1, (w-1)*2+1) into a classifier 1x1, summed with a 1x1
+    classifier of ``low_level`` (which must have that size)."""
+
+    def __init__(self, in_features: int, low_level_features: int, mid_channels: int,
+                 num_classes: int, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.tl = ReLUConvBN(in_features, mid_channels, 1, dtype=dtype)
+        self.bl_conv = Conv2d(in_features, mid_channels, 1, use_bias=True, dtype=dtype)
+        self.tr_conv = Conv2d(mid_channels, num_classes, 1, use_bias=True, dtype=dtype)
+        self.br_conv = Conv2d(low_level_features, num_classes, 1, use_bias=True, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, low_level: torch.Tensor) -> torch.Tensor:
+        t1 = self.tl(x)
+        h, w = t1.shape[2:]
+        # torch AvgPool2d(49, stride=[16, 20]): no padding
+        t2 = torch.sigmoid(self.bl_conv(F.avg_pool2d(x, 49, (16, 20))))
+        t3 = t1 * resize_bilinear(t2, (h, w), align_corners=False)
+        t3 = resize_bilinear(t3, ((h - 1) * 2 + 1, (w - 1) * 2 + 1), align_corners=False)
+        return self.tr_conv(t3) + self.br_conv(low_level)

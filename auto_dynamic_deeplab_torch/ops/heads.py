@@ -50,7 +50,9 @@ class DecoderHead(nn.Module):
         x = self.classifier(x.float()).contiguous()
         if not self.training and self.dtype is not None and not self.fp32_eval_logits:
             x = x.to(self.dtype)
-        x = resize_bilinear(x, size, align_corners=False)
+        # the JAX package's NHWC and class-leading resizes order the axes
+        # by their own rules, which decide where bf16 rounds
+        x = resize_bilinear(x, size, align_corners=False, cheaper_axis_first=class_leading)
         return x if class_leading else x.permute(0, 2, 3, 1)
 
 

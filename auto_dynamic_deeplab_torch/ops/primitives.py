@@ -147,16 +147,41 @@ class DilConv(nn.Module):
         return self.bn(self.conv(F.relu(x)))
 
 
+def weights_key(module: nn.Module, dtype: torch.dtype) -> tuple:
+    """What a cache of weights derived from ``module`` is valid for: the
+    dtype and every parameter's and buffer's storage and version (an
+    in-place update, ``load_state_dict`` or a move changes it)."""
+    tensors = list(module.parameters()) + list(module.buffers())
+    return (dtype, tuple((t.data_ptr(), t.device, -1 if t.is_inference() else t._version) for t in tensors))
+
+
+def composed_sep_kernel(dw: Conv2d, pw: Conv2d, dtype: torch.dtype) -> torch.Tensor:
+    """One separable stage, depthwise(k) then pointwise(1x1) with no
+    nonlinearity between them, as ONE dense kxk kernel
+    ``K[o, c] = dw[c, 0] * pw[o, c]`` (JAX ops/primitives.py::
+    _composed_sep_stage): composed in fp32, cast once to ``dtype``."""
+    k = dw.kernel.float()[None, :, 0] * pw.kernel.float()[:, :, 0, 0, None, None]
+    return k.to(dtype).contiguous()
+
+
 class SepConv(nn.Module):
     """ReLU → dw(k,stride) → pw → BN → ReLU → dw(k,1) → pw → BN
-    (operations.py:46-62)."""
+    (operations.py:46-62).
+
+    ``dense_form=True`` (eval only) runs each dw→pw pair as one dense kxk
+    conv with the composed kernel (``composed_sep_kernel``), kept on the
+    module and composed again only when a weight changes. Training and the
+    parameters are those of the factored form."""
 
     def __init__(
         self, in_features: int, features: int, kernel_size: int, stride: int = 1,
         padding: int = 0, affine: bool = True, dtype: Optional[torch.dtype] = None,
+        dense_form: bool = False,
     ):
         super().__init__()
         k, c = kernel_size, in_features
+        self.dtype, self.dense_form = dtype, dense_form
+        self.stride, self.padding = stride, padding
         self.dw1 = Conv2d(c, c, k, stride, padding, groups=c, dtype=dtype)
         self.pw1 = Conv2d(c, features, 1, dtype=dtype)
         self.bn1 = BatchNorm(features, affine=affine, dtype=dtype)
@@ -164,7 +189,25 @@ class SepConv(nn.Module):
         self.pw2 = Conv2d(features, features, 1, dtype=dtype)
         self.bn2 = BatchNorm(features, affine=affine, dtype=dtype)
 
+    def composed(self, dtype: torch.dtype):
+        """The two stages' composed kernels in ``dtype``, cached per weight
+        version."""
+        key = weights_key(self, dtype)
+        cached = getattr(self, "_composed", None)
+        if cached is not None and cached[0] == key:
+            return cached[1]
+        with torch.no_grad():
+            w = (composed_sep_kernel(self.dw1, self.pw1, dtype),
+                 composed_sep_kernel(self.dw2, self.pw2, dtype))
+        self._composed = (key, w)
+        return w
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dense_form and not self.training:
+            dt = self.dtype or x.dtype
+            k1, k2 = self.composed(dt)
+            x = self.bn1(F.conv2d(F.relu(x).to(dt), k1, None, self.stride, self.padding))
+            return self.bn2(F.conv2d(F.relu(x).to(dt), k2, None, 1, self.padding))
         x = self.bn1(self.pw1(self.dw1(F.relu(x))))
         return self.bn2(self.pw2(self.dw2(F.relu(x))))
 

@@ -3,27 +3,59 @@ JAX package): ``align_corners=False`` (F.interpolate's default: the decoder
 and the cells) and ``align_corners=True`` (nn.Upsample in the ASPP pool
 branch). Tensors are NCHW; the interpolation accumulates in fp32 and keeps
 the input dtype.
+
+A lower-precision tensor (bf16) is resized one axis at a time and rounded
+to its dtype after each axis, as the JAX package does (its gather path,
+H then W, and its banded-matmul path for large upscales, the cheaper axis
+first); one ``F.interpolate`` over both axes would round once. Where a bf16
+path ends in cells that upsample (path [..., 3, 2]), rounding once put the
+port's logits 2.4x as far from the fp32 ones as JAX bf16's. fp32 is
+resized in one call: the two orders agree to fp32 rounding. JAX's banded
+path also rounds its interpolation weights to bf16; the port keeps them
+fp32.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+# JAX's banded-matmul threshold (output elements) for an upscale
+_BANDED_MIN_OUT_ELEMS = 1 << 21
 
-def resize_bilinear(x: torch.Tensor, size, align_corners: bool = False) -> torch.Tensor:
-    """Bilinearly resize NCHW ``x`` to spatial ``size`` = (H_out, W_out)."""
+
+def _interpolate(x: torch.Tensor, size, align_corners: bool) -> torch.Tensor:
+    return F.interpolate(x, size=size, mode="bilinear", align_corners=align_corners)
+
+
+def resize_bilinear(
+    x: torch.Tensor, size, align_corners: bool = False, cheaper_axis_first: bool = False
+) -> torch.Tensor:
+    """Bilinearly resize NCHW ``x`` to spatial ``size`` = (H_out, W_out).
+
+    ``cheaper_axis_first`` takes the order of the JAX package's
+    ``resize_bilinear_cl`` for every upscale (its NHWC ``resize_bilinear``
+    does so only above the banded threshold); it matters only below fp32.
+    """
     h_out, w_out = int(size[0]), int(size[1])
-    if tuple(x.shape[2:]) == (h_out, w_out):
+    n, c, h_in, w_in = x.shape
+    if (h_in, w_in) == (h_out, w_out):
         return x
-    return F.interpolate(
-        x, size=(h_out, w_out), mode="bilinear", align_corners=align_corners
+    if x.dtype in (torch.float32, torch.float64) or h_in == h_out or w_in == w_out:
+        return _interpolate(x, (h_out, w_out), align_corners)
+    up = h_out >= h_in and w_out >= w_in
+    w_first = (
+        up
+        and (cheaper_axis_first or n * c * h_out * w_out >= _BANDED_MIN_OUT_ELEMS)
+        and h_out * w_in > w_out * h_in
     )
+    mid = (h_in, w_out) if w_first else (h_out, w_in)
+    return _interpolate(_interpolate(x, mid, align_corners), (h_out, w_out), align_corners)
 
 
 def resize_bilinear_cl(x: torch.Tensor, size, align_corners: bool = False) -> torch.Tensor:
     """NHWC ``x`` in, class-leading (N, C, H_out, W_out) out: the contract of
     the JAX package's ``resize_bilinear_cl``."""
-    return resize_bilinear(x.permute(0, 3, 1, 2), size, align_corners)
+    return resize_bilinear(x.permute(0, 3, 1, 2), size, align_corners, cheaper_axis_first=True)
 
 
 def scale_dimension(dim: int, scale: float) -> int:

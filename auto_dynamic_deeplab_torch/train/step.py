@@ -207,3 +207,16 @@ class SearchSteps:
         self.w_optimizer.load_state_dict(state["w_opt"])
         self.a_optimizer.load_state_dict(state["a_opt"])
         self.step = int(state["step"])
+
+
+def make_eval_step(model):
+    """The all-exits eval program (JAX ``make_eval_step``): NHWC images ->
+    the per-exit argmax predictions (N, H, W), with the model's own
+    weights, in eval mode."""
+
+    @torch.inference_mode()
+    def eval_step(image: torch.Tensor) -> List[torch.Tensor]:
+        model.eval()
+        return [o.argmax(dim=-1) for o in model(image)]
+
+    return eval_step

@@ -1,7 +1,8 @@
 """Segmentation metrics (utils/metrics.py of the JAX package): a running
 num_class² confusion matrix accumulated on the labels' device with
 ``torch.bincount``; mIoU and pixel accuracy are reduced on the host
-with a nan-mean over absent classes. Only the small matrix is fetched."""
+with a nan-mean over absent classes (mIoU, pixel accuracy, per-class
+accuracy, frequency-weighted IoU). Only the small matrix is fetched."""
 from __future__ import annotations
 
 import numpy as np
@@ -51,8 +52,21 @@ class Evaluator:
         cm = self._cm()
         return float(np.diag(cm).sum() / cm.sum())
 
+    def Pixel_Accuracy_Class(self) -> float:
+        cm = self._cm()
+        with np.errstate(divide="ignore", invalid="ignore"):
+            acc = np.diag(cm) / cm.sum(axis=1)
+        return _nanmean(acc)
+
     def Mean_Intersection_over_Union(self) -> float:
         cm = self._cm()
         with np.errstate(divide="ignore", invalid="ignore"):
             iou = np.diag(cm) / (cm.sum(axis=1) + cm.sum(axis=0) - np.diag(cm))
         return _nanmean(iou)
+
+    def Frequency_Weighted_Intersection_over_Union(self) -> float:
+        cm = self._cm()
+        freq = cm.sum(axis=1) / cm.sum()
+        with np.errstate(divide="ignore", invalid="ignore"):
+            iou = np.diag(cm) / (cm.sum(axis=1) + cm.sum(axis=0) - np.diag(cm))
+        return float((freq[freq > 0] * iou[freq > 0]).sum())

@@ -1,6 +1,8 @@
-"""Read the flax msgpack files that ``flax.serialization.to_bytes`` writes
-(the trained weights under artifacts/product_proof/), without flax or the
-``msgpack`` package.
+"""Restore helpers: a tolerant copy of one state_dict into another
+(``copy_state_dict``, utils/restore.py of the JAX package; the reference's
+utils/copy_state_dict.py), and a reader of the flax msgpack files that
+``flax.serialization.to_bytes`` writes (the trained weights under
+artifacts/product_proof/), without flax or the ``msgpack`` package.
 
 ``load_flax_msgpack`` returns the tree as nested dicts of numpy arrays,
 ready for ``bridge.load_jax_variables``. It decodes the subset of msgpack
@@ -15,9 +17,10 @@ from __future__ import annotations
 import json
 import os
 import struct
-from typing import Any, Tuple, Union
+from typing import Any, Dict, List, Mapping, Tuple, Union
 
 import numpy as np
+import torch
 
 EXT_NDARRAY = 1
 EXT_NPSCALAR = 3
@@ -145,3 +148,33 @@ def load_product_proof(root: Union[str, os.PathLike]) -> Tuple[dict, dict, dict]
         meta = json.load(f)
     return (load_flax_msgpack(os.path.join(root, "backbone.msgpack")),
             load_flax_msgpack(os.path.join(root, "edm.msgpack")), meta)
+
+
+def copy_state_dict(target, source: Mapping[str, Any], verbose: bool = True) -> Tuple[Any, Dict[str, List[str]]]:
+    """Copy every entry of ``source`` whose name and shape match one of
+    ``target`` (a module, whose weights are then loaded, or a state_dict),
+    report the rest instead of failing. Returns (updated target, report):
+    report lists 'missing' (in the target only), 'unexpected' (in the
+    source only) and 'mismatched' (present with another shape; the
+    target's value is kept)."""
+    module = target if isinstance(target, torch.nn.Module) else None
+    state = dict(module.state_dict() if module is not None else target)
+    report: Dict[str, List[str]] = {"missing": [], "unexpected": [], "mismatched": []}
+    for key, leaf in state.items():
+        if key not in source:
+            report["missing"].append(key)
+            continue
+        cand = torch.as_tensor(source[key])
+        if tuple(cand.shape) != tuple(leaf.shape):
+            report["mismatched"].append(f"{key}: {tuple(cand.shape)} vs {tuple(leaf.shape)}")
+            continue
+        state[key] = cand.to(leaf.device, leaf.dtype)
+    report["unexpected"] = [k for k in source if k not in state]
+    if verbose:
+        for kind in ("missing", "unexpected", "mismatched"):
+            for k in report[kind]:
+                print(f"copy_state_dict {kind}: {k}")
+    if module is not None:
+        module.load_state_dict(state)
+        return module, report
+    return state, report

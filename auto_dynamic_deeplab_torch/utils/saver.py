@@ -86,6 +86,15 @@ class Saver:
         if best_pred > max(previous):
             _save(state, os.path.join(self.experiment_dir, "best_model"))
 
+    def load_checkpoint(self, target=None, filename: str = "checkpoint", map_location="cpu"):
+        """(state, meta) of this experiment's ``filename``; when ``target``
+        is a module, its weights are loaded from ``state["model"]`` (the
+        JAX package restores into a pytree of the target's structure)."""
+        state, meta = restore_checkpoint(os.path.join(self.experiment_dir, filename), map_location)
+        if target is not None:
+            target.load_state_dict(state["model"])
+        return state, meta
+
     def save_architecture(
         self,
         epoch: int,

@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases 1,11        # NAS search
     python3 chip_smoke.py --phases 1,2,3,12,9  # the input pipeline, with K1's and K2's checks
     python3 chip_smoke.py --phases 1,13        # the parallel modes
+    python3 chip_smoke.py --phases 1,14        # the other --cell-exec values and --flops
 
 Phases, each printing JSON lines and raising on failure:
   1. device: the card, its power limit and the kernels' build time (every
@@ -125,13 +126,30 @@ Phases, each printing JSON lines and raising on failure:
      segment loop, the p50 of 20 images (after 3) early exit and full
      depth, and each block's K1, K2 and K3-K6 launches against the
      routes; last, dynamic_inference(pipeline_devices=GPUs+1) must raise;
+  14. the JAX CLI's other --cell-exec values, run before the summary:
+     seeded flagship weights with drifted BN statistics, saved as a
+     checkpoint that every run reads through cli.evaluate --resume; with
+     packed, flat-packed and dense-sep, each exit's fp32 logits on 2
+     1025x2049 images against xla's (1e-3 of max|ref|), and the fused
+     --dynamic entropy exits of 8 images at the median of their exit-0
+     confidences (the same exit wherever the confidence lies farther than
+     1e-4 from it); cli.evaluate.main static with --flops (params equal to
+     the xla model's count) and --dynamic (the fused graphs, kernels
+     counted as in phase 6) for each; the mixed genotype under
+     flat-packed (K4 and K6 launch); utils/profiling's device_time of one
+     forward and a trace written; then, for fp32 and bf16, each variant's
+     fused engine against its segment loop on one image (same exit,
+     bitwise logits), its launches per image against the routes, and the
+     fused p50 of 20 images after 3, early exit and full depth, with
+     device ms, host launches and readbacks per image;
   9. the kernels summary line; each kernel's launches are those phases 6,
      10 and 12 ran on the card: its wrapper count in the static,
      segment-loop and training runs, and in the fused runs the profiler's
      count of the warm-up and the replays (not the capture, which runs
      nothing); ``train_path_launches`` are phase 10's alone,
      ``search_path_launches`` phase 11's, ``data_path_launches`` phase
-     12's, ``parallel_path_launches`` phase 13's. A run of a subset of the
+     12's, ``parallel_path_launches`` phase 13's, ``variants_path_launches``
+     phase 14's. A run of a subset of the
      phases lists the kernels whose checks (2-4) ran.
 The last lines are the kernels summary, the card's name and power limit
 from nvidia-smi, and {"ok": true, "device": {...}}. Without a GPU, or
@@ -172,6 +190,9 @@ CELL_BLOCKS = (
 # avg_pool+dil3 (per-op K6), none+sep5 (one-edge K3), skip+sep3 (K3)
 MIXED_GENOTYPE = [[0, 1], [1, 4], [2, 3], [3, 7], [5, 2], [8, 6], [11, 0], [13, 5], [18, 3], [19, 4]]
 CELL_KERNELS = ("block_stage", "sep_fused", "sep_stage", "dense_stage")
+# the --cell-exec values whose cells run K3-K6, and phase 14's variants
+FLAT_EXECS = ("flat", "flat-packed")
+VARIANTS = ("packed", "flat-packed", "dense-sep")
 # the host calls that put work on the card, as torch.profiler names them
 HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
                      "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
@@ -652,16 +673,17 @@ def _flagship_genotype():
     return AUTODEEPLAB_GENOTYPE
 
 
-def _flagship(dtype=None, seed=0, flat_eval=False):
+def _flagship(dtype=None, seed=0, flat_eval=False, **flags):
     """The flagship ADD with seeded weights; the same seed gives the same
-    weights with either cell execution."""
+    weights with any cell execution (``flags``: ``packed_eval``,
+    ``dense_sep_eval``)."""
     from auto_dynamic_deeplab_torch.models import ADD
     from auto_dynamic_deeplab_torch.nas import AUTODEEPLAB_GENOTYPE, NETWORK_ARCH
     from auto_dynamic_deeplab_torch.utils.initialize import init_params, randomize_bn
 
     cfg = NETWORK_ARCH[2]
     model = ADD(cfg["path"], cfg["C_index"], AUTODEEPLAB_GENOTYPE, 19, F=20, B=5,
-                low_level_layer=cfg["low_level_layer"], dtype=dtype, flat_eval=flat_eval)
+                low_level_layer=cfg["low_level_layer"], dtype=dtype, flat_eval=flat_eval, **flags)
     g = torch.Generator().manual_seed(seed)
     return randomize_bn(init_params(model, g), g).eval()
 
@@ -753,9 +775,9 @@ def _check_run(name, cell_exec, stats, counts, n_img, genotype):
         if name.startswith("dynamic_entropy") and k2 < n_img:
             raise AssertionError(f"{name} {cell_exec}: K2 launched {k2} times for {n_img} images")
     cells = {k: counts[k] for k in CELL_KERNELS}
-    if cell_exec == "xla":
+    if cell_exec not in FLAT_EXECS:
         if any(cells.values()):
-            raise AssertionError(f"{name}: the xla path launched cell kernels {cells}")
+            raise AssertionError(f"{name}: the {cell_exec} path launched cell kernels {cells}")
         return
     # per image: cells 0-5 when it exits at exit 0, all 12 at full depth;
     # a dynamic run's warm-up runs every cell once; validate runs all 12
@@ -769,7 +791,7 @@ def _check_run(name, cell_exec, stats, counts, n_img, genotype):
         want.update({k: v * hist[0] for k, v in early.items()})
     want = {k: want.get(k, 0) for k in CELL_KERNELS}
     if cells != want:
-        raise AssertionError(f"{name} flat: cell kernel launches {cells}, the routes predict {want}")
+        raise AssertionError(f"{name} {cell_exec}: cell kernel launches {cells}, the routes predict {want}")
 
 
 def _check_dynamic_stats(name, cell_exec, stats, n_img):
@@ -790,7 +812,7 @@ def _fused_wants(name, cell_exec, stats, genotype):
     image's exit is the histogram's only one, or else either."""
     conf = "edm" if name == "dynamic_edm" else "entropy"
     hist, n_img = stats["exit_histogram"], stats["n_images"]
-    cells = CELL_KERNELS if cell_exec == "flat" else ()
+    cells = CELL_KERNELS if cell_exec in FLAT_EXECS else ()
     early, full = (expected_cell_launches(genotype, torch.float32, range(c)) for c in (6, 12))
     segments = Counter({"fused_stems": 1, "entropy_argmax_triton": int(conf == "entropy")})
     segments.update({k: v for k, v in full.items() if k in cells})
@@ -807,6 +829,41 @@ def _fused_wants(name, cell_exec, stats, genotype):
                 dev.update(per_exit[k])
         devices.append(({k: dev.get(k, 0) for k in wrappers}, _as_device(dev)))
     return wrappers, devices
+
+
+def _fused_cli_run(kernels, name, cell_exec, main, genotype, n_img=8, phase="main_path"):
+    """One ``cli.evaluate --dynamic`` run (the fused graphs) by ``main``:
+    its wrapper calls (the warm-up and the capture) and the device kernels
+    the profiler counts (the warm-up and every replay) against what the
+    routes predict. Returns (stats, the launches that ran, by wrapper)."""
+    seen = {}
+
+    def enough(device):
+        _, wants = _fused_wants(name, cell_exec, seen["stats"], genotype)
+        return any(all(device[k] >= w[k] for k in w) for _, w in wants)
+
+    def run():
+        for f in kernels.values():
+            f.launches = 0
+        stats = main()
+        seen.update(stats=stats, counts={n: f.launches for n, f in kernels.items()})
+        return stats
+
+    stats, device = _device_kernel_counts(run, enough)
+    counts = seen["counts"]
+    _check_dynamic_stats(name, cell_exec, stats, n_img)
+    wrappers, wants = _fused_wants(name, cell_exec, stats, genotype)
+    if counts != wrappers:
+        raise AssertionError(f"{name} {cell_exec} fused: wrapper calls {counts}, the warm-up and "
+                             f"the capture predict {wrappers}")
+    ran = [by_wrapper for by_wrapper, by_kernel in wants if by_kernel == device]
+    if not ran:
+        raise AssertionError(f"{name} {cell_exec} fused: device kernels {device}, the routes "
+                             f"predict one of {[w for _, w in wants]}")
+    # what ran on the device (warm-up and replays), by wrapper
+    emit({"phase": phase, "cell_exec": cell_exec, "run": name, "mode": "fused",
+          "stats": stats, "launches": ran[0], "wrapper_calls": counts, "device_kernels": device})
+    return stats, ran[0]
 
 
 def phase_main_path(ctx):
@@ -841,32 +898,8 @@ def phase_main_path(ctx):
                 total.update(counts)
                 continue
             # the fused (graph) run; the device counts the replays' kernels
-            seen = {}
-
-            def enough(device):
-                _, wants = _fused_wants(name, cell_exec, seen["stats"], genotype)
-                return any(all(device[k] >= w[k] for k in w) for _, w in wants)
-
-            def run():
-                stats, counts = drive(lambda: evaluate.main(argv))
-                seen.update(stats=stats, counts=counts)
-                return stats
-
-            stats, device = _device_kernel_counts(run, enough)
-            counts = seen["counts"]
-            _check_dynamic_stats(name, cell_exec, stats, 8)
-            wrappers, wants = _fused_wants(name, cell_exec, stats, genotype)
-            if counts != wrappers:
-                raise AssertionError(f"{name} {cell_exec} fused: wrapper calls {counts}, the warm-up and "
-                                     f"the capture predict {wrappers}")
-            ran = [by_wrapper for by_wrapper, by_kernel in wants if by_kernel == device]
-            if not ran:
-                raise AssertionError(f"{name} {cell_exec} fused: device kernels {device}, the routes "
-                                     f"predict one of {[w for _, w in wants]}")
-            # what ran on the device (warm-up and replays), by wrapper
-            emit({"phase": "main_path", "cell_exec": cell_exec, "run": name, "mode": "fused",
-                  "stats": stats, "launches": ran[0], "wrapper_calls": counts, "device_kernels": device})
-            total.update(ran[0])
+            stats, ran = _fused_cli_run(kernels, name, cell_exec, lambda: evaluate.main(argv), genotype)
+            total.update(ran)
         # the segment loop (fused=False) through the CLI's own build
         name = "dynamic_entropy_thr0"
         args = evaluate.build_parser().parse_args(base + ["--cell-exec", cell_exec] + runs[1][1])
@@ -940,7 +973,7 @@ def _segments(dtype, cell_exec, cells):
     """Wrapper launches of one entropy decide_0 (cells 0-5) or of every
     segment (12 cells)."""
     c = Counter({"fused_stems": 1, "entropy_argmax_triton": 1})
-    if cell_exec == "flat":
+    if cell_exec in FLAT_EXECS:
         c.update(expected_cell_launches(_flagship_genotype(), dtype, range(cells)))
     return c
 
@@ -2045,6 +2078,178 @@ def phase_parallel(ctx):
     ctx["parallel_launches"] = dict(total)
 
 
+def _variant_engine_row(ctx, dtype, cell_exec):
+    """Phase 14's engine numbers for one dtype and variant: the fused
+    graphs against the segment loop on one image (same exit, bitwise
+    logits), the segment loop's kernel launches per image against the
+    routes, the fused p50 of 20 images after 3 early exit and full depth,
+    and device ms, host launches and readbacks per image from a profiled
+    window of 3 images."""
+    from auto_dynamic_deeplab_torch.cli.evaluate import CELL_EXEC
+    from auto_dynamic_deeplab_torch.runtime import resolve_device
+    from auto_dynamic_deeplab_torch.train.dynamic import DynamicInferenceEngine
+
+    dev = resolve_device("cuda")
+    shape = (1, *FULL_HW, 3)
+    dname = str(dtype).split(".")[-1]
+    kernels = _all_kernels()
+    engine = DynamicInferenceEngine(_flagship(dtype, **CELL_EXEC[cell_exec]).to(dev), num_classes=19)
+    g = torch.Generator(device=dev).manual_seed(5)
+    engine.warmup(shape, "entropy", 0.0)
+    row = {"dtype": dname, "cell_exec": cell_exec, "launches_per_image": {}}
+    launched = Counter()
+    x = torch.randn(shape, generator=g, device=dev)
+    for name, thr, want_exit in (("early_exit", 1.01, 0), ("full_depth", 0.0, 1)):
+        for f in kernels.values():
+            f.launches = 0
+        want, k_want, _, c_want = engine.infer(x, thr, "entropy")
+        counts = {n: f.launches for n, f in kernels.items()}
+        got, k_got, _, c_got = engine.infer_fused(x, thr, "entropy")
+        torch.cuda.synchronize()
+        if not (k_got == k_want == want_exit and c_got == c_want and torch.equal(got, want)):
+            raise AssertionError(f"{dname} {cell_exec} thr={thr}: fused exit {k_got} conf {c_got}, segment "
+                                 f"loop exit {k_want} conf {c_want}, want exit {want_exit}")
+        routes = _segments(dtype, cell_exec, 6 if want_exit == 0 else 12)
+        if counts != {n: routes.get(n, 0) for n in kernels}:
+            raise AssertionError(f"{dname} {cell_exec} {name}: launches {counts}, the routes predict {dict(routes)}")
+        row["launches_per_image"][name] = counts
+        launched.update(counts)
+        times = []
+        for _ in range(3 + 20):
+            _, k, dt, _ = engine.infer_fused(torch.randn(shape, generator=g, device=dev), thr, "entropy")
+            if k != want_exit:
+                raise AssertionError(f"{dname} {cell_exec} fused {name}: exit {k}")
+            times.append(dt * 1e3)
+        xs = [torch.randn(shape, generator=g, device=dev) for _ in range(3)]
+        row[name] = {"p50_ms": statistics.median(times[3:]), "min_ms": min(times[3:]), "max_ms": max(times[3:]),
+                     "n": 20, **_window(engine, engine.infer_fused, xs, thr)}
+        row[name]["device_busy_share_at_p50"] = row[name]["device_ms_per_image"] / row[name]["p50_ms"]
+    row["captures"] = engine.captures
+    emit({"phase": "variants", "engine": row, "hw": list(FULL_HW), "batch": 1, "confidence": "entropy",
+          "nvidia_smi": ctx["smi"]})
+    return launched
+
+
+def phase_variants(ctx):
+    """Phase 14: the other --cell-exec values on the card (see the module
+    docstring)."""
+    from auto_dynamic_deeplab_torch.cli import evaluate
+    from auto_dynamic_deeplab_torch.utils import profiling
+    from auto_dynamic_deeplab_torch.utils.flops import count_params
+
+    if "smi" not in ctx:
+        ctx["smi"] = nvidia_smi_line()
+    kernels = _all_kernels()
+    genotype = _flagship_genotype()
+    n_img = 8
+    total = Counter()
+
+    def drive(fn):
+        for f in kernels.values():
+            f.launches = 0
+        out = fn()
+        return out, {name: f.launches for name, f in kernels.items()}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # seeded weights, BN statistics drifted off their initial values,
+        # given to every run as the CLI's --resume checkpoint
+        xla_model = _flagship()
+        with torch.no_grad():
+            # the seeded logits reach 1e4, where every image's exit-0 entropy
+            # lies within 1e-4 of 0: scaled, the entropies spread and the
+            # dynamic check below separates images
+            xla_model.decoder.classifier.kernel.mul_(1e-3)
+            xla_model.decoder.classifier.bias.mul_(1e-3)
+        torch.save({"model": xla_model.state_dict()}, os.path.join(tmp, "checkpoint"))
+        n_params = count_params(xla_model)
+        base = ["--dataset", "synthetic", "--synthetic-crop", str(FULL_HW[0]), str(FULL_HW[1]),
+                "--synthetic-length", str(n_img), "--workers", "4"]
+
+        def build(cell_exec):
+            args = evaluate.build_parser().parse_args(base + ["--resume", tmp, "--cell-exec", cell_exec])
+            return evaluate.build(args)[0]
+
+        # static logits and dynamic exits against xla on the same weights and images
+        ref = build("xla")
+        gen = torch.Generator(device="cuda").manual_seed(41)
+        xs = [torch.randn((1, *FULL_HW, 3), generator=gen, device="cuda") for _ in range(n_img)]
+        with torch.inference_mode():
+            refs = [[o.float() for o in ref.model(x, class_leading=True)] for x in xs[:2]]
+        confs = [ref.engine.infer_fused(x, 2.0, "entropy")[3] for x in xs]
+        thr = float(np.median(confs))
+        ref_exits = [ref.engine.infer_fused(x, thr, "entropy")[1] for x in xs]
+        # utils/profiling: one forward's device time, and a trace
+        with torch.inference_mode():
+            forward_s = profiling.device_time(lambda: ref.model(xs[0]), iters=5, warmup=2)
+            trace_dir = os.path.join(tmp, "trace")
+            with profiling.trace(trace_dir):
+                ref.model(xs[0])
+        trace_bytes = os.path.getsize(os.path.join(trace_dir, profiling.TRACE_FILE))
+        if not trace_bytes:
+            raise AssertionError("profiling.trace wrote an empty trace")
+        emit({"phase": "variants", "check": "profiling", "xla_forward_device_time_ms": forward_s * 1e3,
+              "trace_bytes": trace_bytes})
+        del ref
+        gc.collect()
+        for cell_exec in VARIANTS:
+            ev = build(cell_exec)
+            with torch.inference_mode():
+                outs, counts = drive(lambda: [ev.model(x, class_leading=True) for x in xs[:2]])  # noqa: B023
+            rows = []
+            for o_img, r_img in zip(outs, refs):
+                for o, r in zip(o_img, r_img):
+                    err, tol = (o.float() - r).abs().max().item(), 1e-3 * r.abs().max().item()
+                    if not (torch.isfinite(o).all() and err <= tol):
+                        raise AssertionError(f"{cell_exec}: logits differ from xla's by {err} > {tol}")
+                    rows.append({"max_abs_err": err, "tol": tol})
+            total.update(counts)
+            exits, vconfs = [], []
+            for x in xs:
+                _, k, _, c = ev.engine.infer_fused(x, thr, "entropy")
+                exits.append(k)
+                vconfs.append(c)
+            far = [i for i, c in enumerate(confs) if abs(c - thr) > 1e-4]
+            if len(far) < n_img // 2 or any(exits[i] != ref_exits[i] for i in far):
+                raise AssertionError(f"{cell_exec} --dynamic: exits {exits}, xla's {ref_exits} (threshold {thr}, "
+                                     f"{len(far)} images farther than 1e-4 from it)")
+            emit({"phase": "variants", "cell_exec": cell_exec, "check": "against_xla", "exits_logits": rows,
+                  "logit_launches": counts, "threshold": thr, "exits": exits, "xla_exits": ref_exits,
+                  "max_conf_diff": max(abs(a - b) for a, b in zip(vconfs, confs)), "images_compared": len(far)})
+            del ev
+            gc.collect()
+            # through the CLI: static with --flops, then --dynamic (the fused graphs)
+            argv = base + ["--resume", tmp, "--cell-exec", cell_exec]
+            stats, counts = drive(lambda: evaluate.main(argv + ["--flops"]))  # noqa: B023
+            _check_run("static", cell_exec, stats, counts, n_img, genotype)
+            if stats["complexity"]["params"] != n_params:
+                raise AssertionError(f"{cell_exec} --flops: params {stats['complexity']['params']}, xla {n_params}")
+            emit({"phase": "variants", "cell_exec": cell_exec, "run": "static", "stats": stats, "launches": counts})
+            total.update(counts)
+            dyn = argv + ["--dynamic", "--confidence", "entropy", "--threshold", "0"]
+            _, ran = _fused_cli_run(kernels, "dynamic_entropy_thr0", cell_exec, lambda: evaluate.main(dyn),  # noqa: B023
+                                    genotype, n_img, phase="variants")
+            total.update(ran)
+        geno = Path(tmp) / "mixed_genotype.npy"
+        np.save(geno, np.array(MIXED_GENOTYPE, dtype=np.int64))
+        stats, counts = drive(lambda: evaluate.main(base + ["--cell-exec", "flat-packed", "--genotype", str(geno)]))
+    _check_run("static", "flat-packed", stats, counts, n_img, MIXED_GENOTYPE)
+    for name in ("sep_fused", "dense_stage"):
+        if counts[name] == 0:
+            raise AssertionError(f"the mixed genotype under flat-packed launched no {name}: {counts}")
+    emit({"phase": "variants", "cell_exec": "flat-packed", "run": "static_mixed_genotype", "stats": stats,
+          "launches": counts})
+    total.update(counts)
+    for dtype in (torch.float32, torch.bfloat16):
+        for cell_exec in VARIANTS:
+            total.update(_variant_engine_row(ctx, dtype, cell_exec))
+            gc.collect()  # the engine's graphs and their pool go with it
+            torch.cuda.empty_cache()
+    missing = [name for name in kernels if total[name] == 0]
+    if missing:
+        raise AssertionError(f"kernels of the variants' paths never launched: {missing} ({dict(total)})")
+    ctx["variants_launches"] = dict(total)
+
+
 def phase_kernels(ctx):
     """The kernels line; a run of a subset of the phases lists the kernels
     whose checks (phases 2-4) ran."""
@@ -2058,6 +2263,7 @@ def phase_kernels(ctx):
             "search_path_launches": ctx.get("search_launches", {}).get(name, 0),
             "data_path_launches": ctx.get("data_launches", {}).get(name, 0),
             "parallel_path_launches": ctx.get("parallel_launches", {}).get(name, 0),
+            "variants_path_launches": ctx.get("variants_launches", {}).get(name, 0),
             "max_abs_err": main["max_abs_err"],
             "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main.get("library_ms"), "dtype": main["dtype"],
@@ -2086,13 +2292,13 @@ def phase_kernels(ctx):
 PHASES = {
     1: phase_device, 2: phase_k1, 3: phase_k2, 4: phase_cells, 5: phase_model,
     6: phase_main_path, 7: phase_engine, 8: phase_trained, 9: phase_kernels, 10: phase_train,
-    11: phase_search, 12: phase_input_pipeline, 13: phase_parallel,
+    11: phase_search, 12: phase_input_pipeline, 13: phase_parallel, 14: phase_variants,
 }
 
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--phases", default="1,2,3,4,5,6,7,8,10,11,12,13,9")
+    p.add_argument("--phases", default="1,2,3,4,5,6,7,8,10,11,12,13,14,9")
     p.add_argument("--parallel-child", action="store_true", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():

@@ -520,7 +520,9 @@ def test_library_name_tracks_source_and_flags(monkeypatch, tmp_path):
 
 def _engine(dtype, cell_exec, seed=0):
     """The flagship topology (C=2, F=20, 19 classes) with seeded weights
-    and an EDM, at the engine's small test size."""
+    and an EDM, at the engine's small test size; ``cell_exec`` is a
+    ``cli.evaluate --cell-exec`` value."""
+    from auto_dynamic_deeplab_torch.cli.evaluate import CELL_EXEC
     from auto_dynamic_deeplab_torch.models import ADD, EDM
     from auto_dynamic_deeplab_torch.nas import NETWORK_ARCH
     from auto_dynamic_deeplab_torch.train.dynamic import DynamicInferenceEngine
@@ -529,13 +531,15 @@ def _engine(dtype, cell_exec, seed=0):
     g = torch.Generator().manual_seed(seed)
     model = randomize_bn(init_params(ADD(
         cfg["path"], cfg["C_index"], AUTODEEPLAB_GENOTYPE, 19, F=20, B=5,
-        low_level_layer=cfg["low_level_layer"], dtype=dtype, flat_eval=cell_exec == "flat"), g), g)
+        low_level_layer=cfg["low_level_layer"], dtype=dtype, **CELL_EXEC[cell_exec]), g), g)
     edm = init_params(EDM(model.feature_channels(model.exit_layers[0]), dtype=dtype), g)
     return DynamicInferenceEngine(model, edm=edm, num_classes=19)
 
 
 ENGINE_HW = (65, 129)
 ENGINE_CASES = [(dtype, cell_exec) for dtype in (torch.float32, torch.bfloat16) for cell_exec in ("xla", "flat")]
+VARIANT_CASES = [(dtype, cell_exec) for dtype in (torch.float32, torch.bfloat16)
+                 for cell_exec in ("packed", "flat-packed", "dense-sep")]
 
 
 def _images(n, seed):
@@ -561,6 +565,45 @@ def test_fused_graphs_match_segment_loop_on_gpu(dtype, cell_exec):
             assert k_got == k_want and c_got == c_want
             assert got.dtype == want.dtype and torch.equal(got, want), (confidence, thr)
     assert engine.replays > 0
+
+
+@needs_gpu
+@pytest.mark.parametrize("dtype,cell_exec", VARIANT_CASES, ids=str)
+def test_variant_fused_graphs_match_segment_loop_on_gpu(dtype, cell_exec):
+    """The other --cell-exec values: replayed graphs against the eager
+    segment loop, bitwise, on each side of the image's exit-0 entropy."""
+    engine = _engine(dtype, cell_exec)
+    x = _images(1, 3)
+    conf = engine.infer(x, 0.0, "entropy")[3]
+    for thr in (conf - 1e-3, conf + 1e-3):
+        want, k_want, _, c_want = engine.infer(x, thr, "entropy")
+        got, k_got, _, c_got = engine.infer_fused(x, thr, "entropy")
+        assert k_got == k_want and c_got == c_want
+        assert got.dtype == want.dtype and torch.equal(got, want), thr
+    assert engine.replays > 0
+
+
+@needs_gpu
+@pytest.mark.parametrize("cell_exec", ["packed", "flat-packed", "dense-sep"])
+def test_variant_folded_weights_follow_load_state_dict_on_gpu(cell_exec):
+    """The packed and composed weights are folded again after a
+    load_state_dict: the model then gives a fresh model's logits for the
+    new weights, bitwise, and keeps one folding until the next change."""
+    torch.backends.cudnn.allow_tf32 = False
+    engine, fresh = _engine(torch.float32, cell_exec), _engine(torch.float32, cell_exec, seed=1)
+    model = engine.model
+    x = _images(1, 6)
+    with torch.inference_mode():
+        before = model(x, class_leading=True)
+        model.load_state_dict(fresh.model.state_dict())
+        after, want = model(x, class_leading=True), fresh.model(x, class_leading=True)
+    assert not torch.equal(after[-1], before[-1])
+    for a, w in zip(after, want):
+        assert torch.equal(a, w)
+    cell = model.cell_3
+    folded = cell.packed_weights(torch.float32) if cell.packed_eval else cell.ops_1.composed(torch.float32)
+    again = cell.packed_weights(torch.float32) if cell.packed_eval else cell.ops_1.composed(torch.float32)
+    assert again is folded
 
 
 @needs_gpu

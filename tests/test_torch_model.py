@@ -166,6 +166,55 @@ def test_add_per_exit_logits_bf16(tiny, tiny_ref):
         assert_bf16_within_jax(o.float().numpy(), np.asarray(r16, np.float32), r32)
 
 
+def _cell_outputs_jax(jm, v, x):
+    """{cell index: its output tuple} from one compiled forward."""
+    _, state = jax.jit(lambda v, x: jm.apply(
+        v, x, train=False, mutable=["intermediates"],
+        capture_intermediates=lambda m, name: isinstance(m, JxCell) and name == "__call__",
+    ))(v, jx(x))
+    cells = state["intermediates"]
+    return {int(k[5:]): cells[k]["__call__"][0] for k in cells if k.startswith("cell_")}
+
+
+def _cell_outputs_port(pm, x):
+    outs = {}
+    hooks = [getattr(pm, f"cell_{i}").register_forward_hook(
+        lambda m, a, o, i=i: outs.setdefault(i, o)) for i in range(len(pm.network_arch))]
+    try:
+        pm(torch.from_numpy(x))
+    finally:
+        for h in hooks:
+            h.remove()
+    return outs
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_add_per_cell_outputs(tiny, dtype):
+    """Every cell's outputs of the tiny ADD along one forward, under the
+    file's fp32 and bf16 policies: where a bf16 departure starts. The bf16
+    exit fault came from the resizes of the last two cells (cell 4 resizes
+    its dense taps, cell 5 upsamples from level 3 to 2): the port rounded
+    them once, JAX after each axis (``test_resize_bilinear_bf16_rounds_as_jax``
+    in tests/test_torch_ops.py). Max relative errors, port against JAX
+    bf16's: cell 4 0.0136 / 0.0080 before the repair, 0.0087 after; the
+    final exit 0.0247 / 0.0102 before, 0.0147 after."""
+    jm, v, pm, x = tiny
+    refs32 = _cell_outputs_jax(jm, v, x)
+    if dtype == "bf16":
+        refs = _cell_outputs_jax(_jx_add(jnp.bfloat16), v, x)
+        outs = _cell_outputs_port(_pt_add(v, torch.bfloat16), x)
+    else:
+        refs, outs = refs32, _cell_outputs_port(pm, x)
+    assert sorted(outs) == sorted(refs) == list(range(len(PATH)))
+    for i in outs:
+        assert len(outs[i]) == len(refs[i]) == len(refs32[i])
+        for o, r, r32 in zip(outs[i], refs[i], refs32[i]):
+            if dtype == "bf16":
+                assert_bf16_within_jax(nhwc_np(o), np.asarray(r, np.float32), r32)
+            else:
+                assert_close_fp32_module(nhwc_np(o), r)
+
+
 @pytest.fixture(scope="module")
 def three_exits():
     """C=3: a level-0 exit (DoubleFactorizedReduce adapter), a level-3 exit

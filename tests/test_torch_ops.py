@@ -1,5 +1,6 @@
 """The port's ops/ layer against the JAX package's, on the same numpy inputs
 and weights (CPU, fp32). Tolerance: |Δ| ≤ 1e-4·max(1, max|ref|)."""
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -53,6 +54,22 @@ def test_resize_bilinear_class_leading(align_corners):
     ref = jx_resize.resize_bilinear_cl(jx(x), (33, 49), align_corners=align_corners)
     out = pt_resize.resize_bilinear_cl(torch.from_numpy(x), (33, 49), align_corners)
     assert_close_fp32_module(out.numpy(), ref)
+
+
+# the up cells' 2x, the decoder's head upsample and a downscale
+@pytest.mark.parametrize("src,dst", [((5, 6), (9, 11)), ((9, 17), (33, 65)), ((13, 17), (7, 9))])
+def test_resize_bilinear_bf16_rounds_as_jax(src, dst):
+    """bf16 rounds after each axis as the JAX package's gather path does:
+    within one bf16 step of the largest value of JAX's bf16 resize, and
+    equal to it on all but 2% of the elements (the fp32 sums' own order).
+    Rounded once over both axes, 22-24% of the elements of the two
+    upscales differ. (JAX's banded path for large upscales also rounds its
+    interpolation weights to bf16; the port keeps them fp32.)"""
+    x = _x((1, *src, 6), seed=3)
+    ref = np.asarray(jx_resize.resize_bilinear(jnp.asarray(x, jnp.bfloat16), dst), np.float32)
+    out = nhwc_np(pt_resize.resize_bilinear(nchw(x).bfloat16(), dst))
+    assert np.abs(out - ref).max() <= 2.0 ** -8 * np.abs(ref).max()
+    assert np.mean(out != ref) <= 0.02, np.mean(out != ref)
 
 
 @pytest.mark.parametrize("dim,scale", [(1025, 0.25), (2049, 0.0625), (65, 2), (33, 0.5)])
