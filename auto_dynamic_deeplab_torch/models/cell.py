@@ -40,6 +40,7 @@ from torch import nn
 
 from ..kernels.cell_ops import run_dag
 from ..nas.genotypes import PRIMITIVES
+from ..ops import band
 from ..ops.packed import packed_relu_conv_bn_1x1, pw_group, run_packed_dag, schedule_waves, wave_weights
 from ..ops.primitives import OPS, FactorizedReduce, ReLUConvBN, weights_key
 from ..ops.resize import resize_bilinear, scale_dimension
@@ -153,10 +154,10 @@ class FixedCell(nn.Module):
         Returns (prev_input, concat) or (prev_input, concat, dense fmap)."""
         prev_input = s1
         if self.downup_sample == 1:
-            target = (scale_dimension(s1.shape[2], 2), scale_dimension(s1.shape[3], 2))
-            s1 = resize_bilinear(s1, target, align_corners=False)
+            h, w = band.shape(s1)[2:]
+            s1 = resize_bilinear(s1, (scale_dimension(h, 2), scale_dimension(w, 2)), align_corners=False)
         s1 = self.preprocess(s1)
-        hw = s1.shape[2:]
+        hw = band.shape(s1)[2:]
         packed = self.packed_weights(self.dtype or s1.dtype) if self.packed_eval and not self.training else None
         if self.dense_in:
             if len(s0) != self.num_dense_in:
@@ -170,7 +171,7 @@ class FixedCell(nn.Module):
                 projected = [getattr(self, f"pre_{i}")(tap) for i, tap in enumerate(taps)]
                 s0 = self.pre_preprocess_1x1(torch.cat(projected, dim=1))
         else:
-            if s0.shape[2] != s1.shape[2]:
+            if band.shape(s0)[2] != hw[0]:
                 s0 = resize_bilinear(s0, hw, align_corners=False)
             s0 = self.pre_preprocess(s0)
 

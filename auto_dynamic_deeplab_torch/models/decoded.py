@@ -25,7 +25,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..kernels.stems import fused_stems, stem_weights, stems_reference
+from ..kernels.stems import _conv_out, fused_stems, stem_weights, stems_reference
+from ..ops import band
 from ..ops.aspp import ASPPTrain
 from ..ops.heads import DecoderHead, LowLevelConv
 from ..ops.norm import BatchNorm, frozen_running_stats
@@ -66,12 +67,49 @@ class _Stems(nn.Module):
         """x: (N, 3, H, W) → (s0, s1). The one place that picks K1 (CUDA
         tensors in eval mode) or its plain version (CPU tensors, and
         training, whose BNs take batch statistics); there is no fallback."""
+        if band.is_band(x):
+            return self._on_band(x)
         if x.device.type == "cuda" and not self.training:
             dtype = self.dtype or torch.float32
             return fused_stems(x, stem_weights(self, dtype), out_dtype=dtype)
         if x.device.type in ("cuda", "cpu"):
             return stems_reference(self, x)
         raise ValueError(f"unsupported device {x.device}")
+
+    def _on_band(self, x: band.RowBand) -> Tuple[band.RowBand, band.RowBand]:
+        """The stems on a row band (spatial sharding): K1 (or its plain
+        version) runs once on a window of global input rows that starts at
+        a multiple of 4, so that its stride-2 and stride-4 phases are the
+        global ones, and reaches past the band far enough that the rows
+        next to the window's inner edges, which K1 pads with zeros, are
+        computed and thrown away: s1 rows from 2 past the window's start
+        (their input reaches back 7 rows), s0 rows from 2 past it; at the
+        bottom s1 row j reads input rows up to 4j + 1, s0 row i up to
+        2i + 1. Only at the global edges is K1's padding the true one."""
+        bands, h = x.bands, x.rows
+        h0 = _conv_out(h)
+        h1 = _conv_out(h0)
+
+        def window(r):
+            (a0, b0), (a1, b1) = bands.band(h0, r), bands.band(h1, r)
+            starts = ([4 * a1 - 8] if b1 > a1 else []) + ([2 * a0 - 4] if b0 > a0 else [])
+            if not starts:
+                return 0, 0
+            ends = ([4 * b1 + 2] if b1 > a1 else []) + ([2 * b0 + 2] if b0 > a0 else [])
+            return max(0, min(starts)) // 4 * 4, min(h, max(ends))
+
+        win = band._fetch(x, window, 0.0)
+        (a0, b0), (a1, b1) = bands.band(h0), bands.band(h1)
+        g = window(bands.rank)[0]
+        if win.shape[2] == 0:
+            n, _, _, w = win.shape
+            dtype = (self.dtype or torch.float32) if win.is_cuda and not self.training else win.dtype
+            s0 = win.new_empty((n, 64, 0, _conv_out(w)), dtype=dtype)
+            s1 = win.new_empty((n, 128, 0, _conv_out(_conv_out(w))), dtype=dtype)
+        else:
+            s0, s1 = self.forward(win)
+            s0, s1 = s0[:, :, a0 - g // 2:b0 - g // 2], s1[:, :, a1 - g // 4:b1 - g // 4]
+        return band.wrap(s0, h0, bands), band.wrap(s1, h1, bands)
 
 
 class DecodedNet(nn.Module):
@@ -234,7 +272,8 @@ class DecodedNet(nn.Module):
         scale = 2.0 ** -(self.network_arch[-1] + 2)
         aspp_hw = (scale_dimension(size[0], scale), scale_dimension(size[1], scale))
         y = self.exit_feature(state, i)
-        if y.shape[2] < aspp_hw[0] or y.shape[3] < aspp_hw[1]:
+        h, w = band.shape(y)[2:]
+        if h < aspp_hw[0] or w < aspp_hw[1]:
             y = resize_bilinear(y, aspp_hw, align_corners=False)
         if i in self._adapters:
             y = self._adapters[i](y)
@@ -246,7 +285,7 @@ class DecodedNet(nn.Module):
     def forward(self, x: torch.Tensor, class_leading: bool = False) -> List[torch.Tensor]:
         """All-exit forward on NHWC images: one logits tensor per exit."""
         state = self.stem_state(x)
-        size = tuple(x.shape[1:3])
+        size = tuple(band.shape(x)[1:3])
         out = []
         start = 0
         for i in self.exit_layers:

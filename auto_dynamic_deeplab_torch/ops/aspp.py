@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from . import band
 from .norm import BatchNorm
 from .primitives import Conv2d, ReLUConvBN
 from .resize import resize_bilinear
@@ -59,9 +60,11 @@ class ASPPTrain(nn.Module):
         for name in self.dils:
             conv, bn = getattr(self, f"{name}_conv"), getattr(self, f"{name}_bn")
             branches.append(F.relu(bn(conv(xd))))
-        x5 = x.mean(dim=(2, 3), keepdim=True)
+        banded = band.is_band(x)  # a band pools every rank's rows and spreads the result over its own
+        x5 = band.mean_hw(x) if banded else x.mean(dim=(2, 3), keepdim=True)
         x5 = F.relu(self.aspp5_bn(self.aspp5_conv(x5)))
-        branches.append(resize_bilinear(x5, x.shape[2:], align_corners=True))
+        branches.append(band.broadcast_rows(x5, like=x) if banded else
+                        resize_bilinear(x5, x.shape[2:], align_corners=True))
         return self.bn1(self.conv1(torch.cat(branches, dim=1)))
 
 

@@ -8,6 +8,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from . import band
 from .norm import BatchNorm
 from .primitives import Conv2d
 from .resize import resize_bilinear
@@ -40,7 +41,7 @@ class DecoderHead(nn.Module):
     def forward(
         self, x: torch.Tensor, low_level: torch.Tensor, size, class_leading: bool = False
     ) -> torch.Tensor:
-        x = resize_bilinear(x, low_level.shape[2:], align_corners=False)
+        x = resize_bilinear(x, band.shape(low_level)[2:], align_corners=False)
         x = F.relu(torch.cat([x, low_level], dim=1))
         x = F.relu(self.bn1(self.conv1(x)))
         x = F.relu(self.bn2(self.conv2(x)))

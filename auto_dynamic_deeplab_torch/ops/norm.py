@@ -21,6 +21,12 @@ unbiased factor over the global count n = N*H*W·world; its backward
 all-reduces the two per-channel sums of the input gradient
 (``_CrossReplicaBatchNorm``). ``torch.nn.SyncBatchNorm`` is not used: it
 refuses CPU tensors, on which the multi-process tests run.
+
+Channel tensor parallelism (``parallel.tensor.shard_train_state``) gives
+a BatchNorm a ``shard``: the module then holds one block of its channels'
+parameters and statistics, gathers them whole where it normalizes (the
+parameters' gradients flow back to the block) and keeps its block of the
+blended statistics.
 """
 from __future__ import annotations
 
@@ -65,6 +71,7 @@ class BatchNorm(nn.Module):
         self.affine = affine
         self.dtype = dtype
         self.group = None  # set_bn_group: statistics over this process group
+        self.shard = None  # parallel.tensor: this module holds a block of its channels
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
         if affine:
@@ -79,42 +86,51 @@ class BatchNorm(nn.Module):
         s = self.scale * s
         return s, self.bias - self.mean * s
 
+    def _store(self, mean: torch.Tensor, var: torch.Tensor):
+        """The running statistics take ``mean`` and ``var`` (all channels)
+        in place, which bumps their versions: the kernels' folded-weight
+        caches (kernels/stems.py, kernels/cell_ops.py) key on them."""
+        if self.shard is not None:
+            mean, var = self.shard.local(mean), self.shard.local(var)
+        self.mean.copy_(mean)
+        self.var.copy_(var)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # one kernel; a bf16 input is normalized in fp32 with fp32
         # statistics and rounded once, as (x - mean) * rsqrt(var + eps)
         # * scale + bias in fp32 followed by the cast
         scale, bias = (self.scale, self.bias) if self.affine else (None, None)
+        mean, var = self.mean, self.var
+        if self.shard is not None:
+            scale, bias, mean, var = self.shard.gather_bn(scale, bias, mean, var)
         if not self.training:
-            y = F.batch_norm(x, self.mean, self.var, scale, bias,
+            y = F.batch_norm(x, mean, var, scale, bias,
                              training=False, momentum=0.0, eps=self.epsilon)
             return y.to(self.dtype or x.dtype)
         if self.group is not None:
-            return self._cross_replica(x, scale, bias)
+            return self._cross_replica(x, scale, bias, mean, var)
         # The kernel blends the batch statistics into copies of the running
         # ones (its backward keeps the tensors it was given), then the
-        # buffers take them in place, which bumps their versions: the
-        # kernels' folded-weight caches (kernels/stems.py,
-        # kernels/cell_ops.py) key on them. At n = 1 PyTorch's unbiased
+        # buffers take them (``_store``). At n = 1 PyTorch's unbiased
         # variance divides by 0, so there the statistics are blended here.
         multi = x.numel() > x.shape[1]
-        mean, var = (self.mean.clone(), self.var.clone()) if multi else (None, None)
-        y = torch.batch_norm(x, scale, bias, mean, var, True, self.momentum, self.epsilon,
+        run_mean, run_var = (mean.clone(), var.clone()) if multi else (None, None)
+        y = torch.batch_norm(x, scale, bias, run_mean, run_var, True, self.momentum, self.epsilon,
                              torch.backends.cudnn.enabled)
         if not _frozen_stats:
             with torch.no_grad():
                 if multi:
-                    self.mean.copy_(mean)
-                    self.var.copy_(var)
+                    self._store(run_mean, run_var)
                 else:  # batch mean x, variance 0
-                    self.mean.lerp_(x.reshape(-1).float(), self.momentum)
-                    self.var.mul_(1.0 - self.momentum)
+                    self._store(mean.lerp(x.reshape(-1).float(), self.momentum), var * (1.0 - self.momentum))
         return y.to(self.dtype or x.dtype)
 
-    def _cross_replica(self, x, scale, bias) -> torch.Tensor:
-        """Training mode over the group (JAX ops/norm.py:58-75)."""
+    def _cross_replica(self, x, scale, bias, mean, var) -> torch.Tensor:
+        """Training mode over the group (JAX ops/norm.py:58-75); ``mean``
+        and ``var`` are the running statistics of every channel."""
         if not self.affine:  # the backward reads the per-channel sums off the affine gradients
-            scale, bias = torch.ones_like(self.mean), torch.zeros_like(self.mean)
-        y = _CrossReplicaBatchNorm.apply(x, scale, bias, self)
+            scale, bias = torch.ones_like(mean), torch.zeros_like(mean)
+        y = _CrossReplicaBatchNorm.apply(x, scale, bias, self, (mean, var))
         return y.to(self.dtype or x.dtype)
 
 
@@ -131,7 +147,7 @@ class _CrossReplicaBatchNorm(torch.autograd.Function):
     each rank's own (the step averages them)."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, bn):
+    def forward(ctx, x, scale, bias, bn, running):
         if x.is_cuda:  # Welford mean and 1/sqrt(var + eps) in fp32, one kernel
             mean, invstd = torch.batch_norm_stats(x, bn.epsilon)
             var = invstd.pow(-2).sub_(bn.epsilon)
@@ -143,8 +159,8 @@ class _CrossReplicaBatchNorm(torch.autograd.Function):
         var = torch.addcmul(mean_sq, mean, mean, value=-1.0).clamp_(min=0.0)
         n = x.numel() // x.shape[1] * torch.distributed.get_world_size(bn.group)
         if not _frozen_stats:
-            bn.mean.lerp_(mean, bn.momentum)
-            bn.var.lerp_(var * (n / max(n - 1.0, 1.0)), bn.momentum)
+            bn._store(running[0].lerp(mean, bn.momentum),
+                      running[1].lerp(var * (n / max(n - 1.0, 1.0)), bn.momentum))
         ctx.save_for_backward(x, scale, mean, var)
         ctx.bn, ctx.n = bn, n
         return torch.batch_norm(x, scale, bias, mean, var, False, 0.0, bn.epsilon, torch.backends.cudnn.enabled)
@@ -164,7 +180,7 @@ class _CrossReplicaBatchNorm(torch.autograd.Function):
         # (x − mean)·invstd·w + b with w = −k·Σdy·x̂/n, b = −k·Σdy/n
         dx.add_(torch.batch_norm(x, coef[1], coef[0], mean, var, False, 0.0, bn.epsilon,
                                  torch.backends.cudnn.enabled))
-        return dx, d_scale, d_bias, None
+        return dx, d_scale, d_bias, None, None
 
 
 def set_bn_group(model: nn.Module, group) -> nn.Module:

@@ -6,6 +6,11 @@ in PyTorch layout and stay fp32; with a policy ``dtype`` the operands are
 cast to it, as flax does with ``dtype=``, and the gradients flow back
 through the casts to the fp32 parameters.
 Padding is explicit and symmetric, as in the reference's PyTorch convs.
+On a ``band.RowBand`` (spatial sharding) the convs, pools and the shift
+take their band rules (``ops/band.py``): halo rows from the other ranks,
+padding only past the global edges. A conv with a ``shard`` (channel
+tensor parallelism, ``parallel.tensor``) computes only its block of
+output channels and gathers the rest.
 
 The 8 primitives (modeling/genotypes.py:5-14) are exposed through ``OPS``:
 name -> factory(C, stride, **kw) -> module called as ``op(x)``.
@@ -18,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from . import band
 from .norm import BatchNorm
 
 
@@ -46,6 +52,7 @@ class Conv2d(nn.Module):
         self.stride, self.padding = stride, padding
         self.dilation, self.groups = dilation, groups
         self.dtype = dtype
+        self.shard = None  # parallel.tensor: this module holds a block of its output channels
         self.kernel = nn.Parameter(
             torch.empty(features, in_features // groups, kernel_size, kernel_size)
         )
@@ -57,6 +64,10 @@ class Conv2d(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x, w = _cast(x, self.kernel, self.dtype)
         b = None if self.bias is None else self.bias.to(w.dtype)
+        if band.is_band(x):
+            return band.conv2d(x, w, b, self.stride, self.padding, self.dilation, self.groups)
+        if self.shard is not None:
+            return self.shard.conv2d(self, x, w, b)
         return F.conv2d(x, w, b, self.stride, self.padding, self.dilation, self.groups)
 
 
@@ -76,11 +87,15 @@ class Dense(nn.Module):
 
 def max_pool_3x3(x: torch.Tensor, stride: int) -> torch.Tensor:
     """MaxPool2d(3, stride, padding=1): padding never wins the max."""
+    if band.is_band(x):
+        return band.max_pool_3x3(x, stride)
     return F.max_pool2d(x, 3, stride, 1)
 
 
 def avg_pool_3x3(x: torch.Tensor, stride: int) -> torch.Tensor:
     """AvgPool2d(3, stride, padding=1, count_include_pad=False), summed in fp32."""
+    if band.is_band(x):
+        return band.avg_pool_3x3(x, stride)
     return F.avg_pool2d(x.float(), 3, stride, 1, count_include_pad=False).to(x.dtype)
 
 
@@ -215,6 +230,8 @@ class SepConv(nn.Module):
 def _shift_up_left(x: torch.Tensor, shift: int) -> torch.Tensor:
     """y[i, j] = x[i+shift, j+shift], zero-filled past the edge
     (the reference's pad-then-slice trick, operations.py:94-99)."""
+    if band.is_band(x):
+        return band.shift_up_left(x, shift)
     return F.pad(x[:, :, shift:, shift:], (0, shift, 0, shift))
 
 

@@ -13,11 +13,18 @@ port's logits 2.4x as far from the fp32 ones as JAX bf16's. fp32 is
 resized in one call: the two orders agree to fp32 rounding. JAX's banded
 path also rounds its interpolation weights to bf16; the port keeps them
 fp32.
+
+A row band (``band.RowBand``, spatial sharding) is resized by
+``band.resize_bilinear``: W by ``F.interpolate`` on the band's rows, H on
+global source rows by PyTorch's own formula, in the same axis order and
+rounding as below.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from . import band
 
 # JAX's banded-matmul threshold (output elements) for an upscale
 _BANDED_MIN_OUT_ELEMS = 1 << 21
@@ -37,10 +44,11 @@ def resize_bilinear(
     does so only above the banded threshold); it matters only below fp32.
     """
     h_out, w_out = int(size[0]), int(size[1])
-    n, c, h_in, w_in = x.shape
+    n, c, h_in, w_in = band.shape(x)
     if (h_in, w_in) == (h_out, w_out):
         return x
-    if x.dtype in (torch.float32, torch.float64) or h_in == h_out or w_in == w_out:
+    banded = band.is_band(x)
+    if not banded and (x.dtype in (torch.float32, torch.float64) or h_in == h_out or w_in == w_out):
         return _interpolate(x, (h_out, w_out), align_corners)
     up = h_out >= h_in and w_out >= w_in
     w_first = (
@@ -48,6 +56,8 @@ def resize_bilinear(
         and (cheaper_axis_first or n * c * h_out * w_out >= _BANDED_MIN_OUT_ELEMS)
         and h_out * w_in > w_out * h_in
     )
+    if banded:
+        return band.resize_bilinear(x, h_out, w_out, align_corners, w_first)
     mid = (h_in, w_out) if w_first else (h_out, w_in)
     return _interpolate(_interpolate(x, mid, align_corners), (h_out, w_out), align_corners)
 

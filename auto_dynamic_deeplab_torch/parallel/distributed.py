@@ -11,18 +11,23 @@ torchrun's (``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``,
 device. ``session`` wraps a CLI's ``main``: it starts the group and ends it
 again if it started it.
 
-``spatial_shard_forward`` (the JAX package's H-sharded forward) is not
-here: see ROADMAP.md.
+``spatial_shard_forward`` is the JAX package's H-sharded forward: each
+rank of a mesh axis runs the model on its band of image rows
+(``parallel/spatial.py``: the split and the row exchange; ``ops/band.py``:
+each op's band rule) and returns its rows of every exit's logits.
 """
 from __future__ import annotations
 
 import contextlib
 import datetime
 import os
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
+
+from .mesh import DATA_AXIS, Mesh
+from .spatial import RowBands
 
 # every collective of a group fails after this long instead of hanging
 TIMEOUT_S = 600.0
@@ -112,3 +117,68 @@ def session(device="cuda"):
     finally:
         if started:
             destroy()
+
+
+class SpatialForward:
+    """The callable ``spatial_shard_forward`` returns. ``exchanged_bytes``
+    is what this rank received in its last call."""
+
+    def __init__(self, model: torch.nn.Module, group):
+        from ..models.cell import FixedCell
+        from ..ops.primitives import SepConv
+
+        for name, m in model.named_modules():
+            if isinstance(m, FixedCell) and (m.flat_eval or m.packed_eval) or \
+                    isinstance(m, SepConv) and m.dense_form:
+                raise ValueError(
+                    f"spatial sharding covers the default cell execution (xla) only: {name or 'the model'} runs "
+                    "--cell-exec flat, packed, flat-packed or dense-sep; build the model without them")
+        self.model, self.group = model, group
+        self.exchanged_bytes = 0
+
+    def bands(self, height: int) -> RowBands:
+        return RowBands(height, self.group)
+
+    @torch.no_grad()
+    def __call__(self, x: torch.Tensor, height: Optional[int] = None) -> List[torch.Tensor]:
+        """x: NHWC images on the model's device: the whole batch's global
+        rows, or with ``height`` (the global H) this rank's band of them.
+        Returns this rank's rows (N, hi - lo, W, classes) of each exit's
+        logits, in eval mode."""
+        from ..ops import band
+
+        height = int(x.shape[1]) if height is None else int(height)
+        bands = self.bands(height)
+        lo, hi = bands.band(height)
+        if x.shape[1] == height and hi - lo != height:
+            x = x[:, lo:hi]
+        self.model.eval()
+        outs = self.model(band.wrap(x, height, bands, dim=1))
+        self.exchanged_bytes = bands.exchanged_bytes
+        for o in outs:
+            if not band.is_band(o) or (o.rows, o.row_dim) != (height, 1):
+                raise AssertionError(f"an exit's logits lost their band: {type(o).__name__}")
+        return [band.local(o) for o in outs]
+
+    def gather(self, outs: List[torch.Tensor], height: int) -> List[torch.Tensor]:
+        """Every rank's rows of ``outs`` (from ``__call__`` on an input of
+        ``height`` rows) put together: the whole NHWC logits on each rank."""
+        bands = self.bands(height)
+        return [bands.fetch(o, height, 1, lambda r: (0, height), 0.0) for o in outs]
+
+
+def spatial_shard_forward(model: torch.nn.Module, mesh=None, axis: str = DATA_AXIS) -> SpatialForward:
+    """The forward with the input's H sharded over ``axis`` of ``mesh`` (a
+    ``DataMesh``, a ``Mesh`` from ``make_mesh``, or None: one process,
+    one band); the parameters are every rank's own, whole. Each rank
+    computes its band of every activation from global rows that the
+    others send it (``RowBands.fetch``): the halo exchanges GSPMD inserts
+    for the JAX package. The default cell execution only (xla): a model
+    with flat, packed or dense-sep cells raises ``ValueError``."""
+    if mesh is None:
+        return SpatialForward(model, None)
+    if isinstance(mesh, Mesh):
+        return SpatialForward(model, mesh.axis_group(axis))
+    if axis != DATA_AXIS:
+        raise ValueError(f"a DataMesh has the {DATA_AXIS!r} axis only, not {axis!r}")
+    return SpatialForward(model, mesh.group)

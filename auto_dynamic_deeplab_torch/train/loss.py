@@ -12,18 +12,20 @@ drivers build it (train.py:70, utils/loss.py), on (N, C, H, W) logits.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 
-def cross_entropy(
+def cross_entropy_terms(
     logits: torch.Tensor,
     target: torch.Tensor,
     weight: Optional[torch.Tensor] = None,
     ignore_index: int = 255,
-) -> torch.Tensor:
-    """logits (N, C, H, W), target (N, H, W) int → scalar fp32 loss."""
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The mean's numerator (the summed weighted NLL) and denominator (the
+    summed weights of the valid pixels), fp32 scalars: a batch split over
+    ranks has the global mean Σ numerators / Σ denominators."""
     num_classes = logits.shape[1]
     logp = torch.log_softmax(logits.float(), dim=1)
     t = target.long()
@@ -34,7 +36,18 @@ def cross_entropy(
         w = valid.float()
     else:
         w = torch.where(valid, weight.to(logits.device, torch.float32)[t_safe], 0.0)
-    return (nll * w).sum() / w.sum().clamp_min(1e-12)
+    return (nll * w).sum(), w.sum()
+
+
+def cross_entropy(
+    logits: torch.Tensor,
+    target: torch.Tensor,
+    weight: Optional[torch.Tensor] = None,
+    ignore_index: int = 255,
+) -> torch.Tensor:
+    """logits (N, C, H, W), target (N, H, W) int → scalar fp32 loss."""
+    num, den = cross_entropy_terms(logits, target, weight, ignore_index)
+    return num / den.clamp_min(1e-12)
 
 
 def multi_exit_cross_entropy(

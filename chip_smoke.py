@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases 1,2,3,12,9  # the input pipeline, with K1's and K2's checks
     python3 chip_smoke.py --phases 1,13        # the parallel modes
     python3 chip_smoke.py --phases 1,14        # the other --cell-exec values and --flops
+    python3 chip_smoke.py --phases 1,15        # spatial sharding and tensor parallelism
 
 Phases, each printing JSON lines and raising on failure:
   1. device: the card, its power limit and the kernels' build time (every
@@ -142,6 +143,24 @@ Phases, each printing JSON lines and raising on failure:
      bitwise logits), its launches per image against the routes, and the
      fused p50 of 20 images after 3, early exit and full depth, with
      device ms, host launches and readbacks per image;
+  15. spatial sharding and channel tensor parallelism, run before the
+     summary, each rank a child process (``--sharded-child``), world 1 then
+     world 2: the flagship
+     at 1025x2049, batch 1, fp32 and bf16, through spatial_shard_forward
+     at world 1 over NCCL (the band is the image) and at world 2 as two
+     processes on cuda:0 over gloo (NCCL refuses two ranks on one GPU;
+     compute stays on the card, the exchanged rows go through the host):
+     each rank's rows against the unsharded forward on the card
+     (SHARDED_TOL of max|ref|), exactly one K1 launch a rank an image,
+     each rank's peak memory beside the unsharded forward's, the bytes of
+     rows it received and the p50s of both; then, in the same processes,
+     one fp32 step of make_tp_train_step on a 1x1 mesh over NCCL (769x769, batch 4) against
+     TrainStep on the same state and batch (PARALLEL_TOL), and on a (1, 2)
+     mesh over gloo on cuda:0 at SHARDED_TP_HW, batch 2 (every gather goes
+     through the host: the crop is cut for time) held to the
+     single-device step by tests/test_tensor_parallel.py's distribution
+     criteria, with each rank's state bytes (under 3/4 of the unsharded
+     state's), peak memory and step ms beside the single step's;
   9. the kernels summary line; each kernel's launches are those phases 6,
      10 and 12 ran on the card: its wrapper count in the static,
      segment-loop and training runs, and in the fused runs the profiler's
@@ -149,7 +168,7 @@ Phases, each printing JSON lines and raising on failure:
      nothing); ``train_path_launches`` are phase 10's alone,
      ``search_path_launches`` phase 11's, ``data_path_launches`` phase
      12's, ``parallel_path_launches`` phase 13's, ``variants_path_launches``
-     phase 14's. A run of a subset of the
+     phase 14's, ``sharded_path_launches`` phase 15's. A run of a subset of the
      phases lists the kernels whose checks (2-4) ran.
 The last lines are the kernels summary, the card's name and power limit
 from nvidia-smi, and {"ok": true, "device": {...}}. Without a GPU, or
@@ -2250,6 +2269,232 @@ def phase_variants(ctx):
     ctx["variants_launches"] = dict(total)
 
 
+SHARDED_IMAGES = 5    # timed forwards of each kind after one warm-up
+SHARDED_TP_HW, SHARDED_TP_BATCH = (385, 385), 2  # the (1, 2) TP step's crop: every gather goes through the host
+# spatial sharding against the unsharded forward on the card, |Δ| ≤ tol·max|ref|:
+# fp32 sums a band's convs and resizes in another order; bf16 also rounds
+# them at other points, a unit of bf16 (2^-8 relative) here and there
+SHARDED_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
+# the (1, 2) TP step against the single-device step: tests/test_tensor_parallel.py's
+# criteria (a split re-associates fp32 sums and flips near-tie selections)
+TP_TOL = {"loss": 2e-4, "frac_above_2e-3": 0.05, "max": 0.05, "bn_rtol": 1e-2, "bn_atol": 1e-4}
+
+
+def _sharded_spatial(mesh, backend, dev):
+    """Spatial sharding of the flagship at FULL_HW, fp32 and bf16, on this
+    rank's band: its rows against the unsharded forward's, one K1 launch,
+    peak memory, bytes received, p50s. Returns the rows to print."""
+    import torch.distributed as dist
+
+    from auto_dynamic_deeplab_torch.kernels.stems import fused_stems
+    from auto_dynamic_deeplab_torch.parallel import spatial_shard_forward
+
+    rows, world = [], dist.get_world_size()
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        model = _flagship(dtype).to(dev)
+        g = torch.Generator(device=dev).manual_seed(7)
+        x = torch.randn(1, *FULL_HW, 3, generator=g, device=dev)
+        fwd = spatial_shard_forward(model, mesh)
+        lo, hi = fwd.bands(FULL_HW[0]).band(FULL_HW[0])
+        fwd(x)  # warm-up: cuDNN's choices, K1's packed weights
+        torch.cuda.synchronize()
+        dist.barrier()
+        fused_stems.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        outs = fwd(x)
+        torch.cuda.synchronize()
+        k1 = fused_stems.launches
+        peak_sharded = torch.cuda.max_memory_allocated(dev)
+        exchanged = fwd.exchanged_bytes
+        outs = [o.float().cpu() for o in outs]
+        times = []
+        for _ in range(SHARDED_IMAGES):
+            dist.barrier()
+            t0 = time.perf_counter()
+            fwd(x)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        with torch.no_grad():
+            model(x)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            refs = [r.float().cpu() for r in model(x)]
+            peak_plain = torch.cuda.max_memory_allocated(dev)
+            plain_times = []
+            dist.barrier()
+            if dist.get_rank() == 0:  # alone on the card
+                for _ in range(SHARDED_IMAGES):
+                    t0 = time.perf_counter()
+                    model(x)
+                    torch.cuda.synchronize()
+                    plain_times.append((time.perf_counter() - t0) * 1e3)
+            dist.barrier()
+        errs = []
+        for o, r in zip(outs, refs):
+            want = r[:, lo:hi]
+            if o.shape != want.shape or not torch.isfinite(o).all():
+                raise AssertionError(f"spatial {dname}: rows {tuple(o.shape)}, want {tuple(want.shape)}")
+            errs.append({"max_abs_err": (o - want).abs().max().item(), "max_abs_ref": r.abs().max().item()})
+        row = {"run": f"spatial_shard_forward world {world} ({backend})", "backend": backend, "world": world,
+               "rank": dist.get_rank(), "dtype": dname, "hw": list(FULL_HW), "band": [lo, hi], "exits": errs,
+               "tol_rel_to_max_ref": SHARDED_TOL[dname], "k1_launches": k1, "exchanged_bytes_per_image": exchanged,
+               "peak_gb_sharded": peak_sharded / 2**30, "peak_gb_unsharded": peak_plain / 2**30,
+               "p50_ms_sharded": statistics.median(times), "ms_sharded": times,
+               "p50_ms_unsharded": statistics.median(plain_times) if plain_times else None,
+               "launches": {"fused_stems": k1}}
+        rows.append(row)
+        print(json.dumps({"phase": "sharded", **row}), flush=True)
+        bad = [e for e in errs if e["max_abs_err"] > SHARDED_TOL[dname] * e["max_abs_ref"]]
+        if bad or k1 != 1:
+            raise AssertionError(f"spatial sharding {dname} world {world}: {row}")
+        del model, fwd, outs, refs
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _state_bytes(model, optimizer) -> int:
+    t = list(model.parameters()) + list(model.buffers())
+    t += [st["momentum_buffer"] for st in optimizer.state.values() if st.get("momentum_buffer") is not None]
+    return sum(v.numel() * v.element_size() for v in t)
+
+
+def _sharded_tp(n_data, n_model, backend, dev):
+    """One dp×tp step of the flagship (fp32) against the single-device
+    TrainStep on the same state and batch."""
+    import copy
+
+    import torch.distributed as dist
+
+    from auto_dynamic_deeplab_torch.parallel import gather_train_state, make_mesh, make_tp_train_step, \
+        shard_train_state
+    from auto_dynamic_deeplab_torch.train.schedules import lr_schedule
+    from auto_dynamic_deeplab_torch.train.step import TrainStep, make_optimizer
+
+    hw, batch = (TRAIN_HW, TRAIN_BATCH) if n_model == 1 else (SHARDED_TP_HW, SHARDED_TP_BATCH)
+    g = torch.Generator(device=dev).manual_seed(9)
+    image = torch.randn(batch, *hw, 3, generator=g, device=dev)
+    label = torch.randint(0, 19, (batch, *hw), generator=g, device=dev)
+    label[: batch // 2, : hw[0] // 2] = 255
+    schedule = lr_schedule("poly", 0.05, 10, 4)
+    single = _flagship().to(dev)
+    model = copy.deepcopy(single)
+    s_opt = make_optimizer(single.parameters())
+    loss_single = TrainStep(single, s_opt, schedule)(image, label).item()
+    single_bytes = _state_bytes(single, s_opt)
+    want = {k: v.detach().to("cpu", copy=True) for k, v in single.state_dict().items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    TrainStep(single, s_opt, schedule)(image, label).item()  # a second step, timed
+    single_ms = (time.perf_counter() - t0) * 1e3
+    del single, s_opt
+    torch.cuda.empty_cache()
+    mesh = make_mesh(n_data, n_model)
+    opt = make_optimizer(model.parameters())
+    shard_train_state(model, opt, mesh)
+    step = make_tp_train_step(model, opt, schedule, mesh)
+    torch.cuda.reset_peak_memory_stats(dev)
+    dist.barrier()
+    t0 = time.perf_counter()
+    loss = step(image, label).item()
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated(dev)
+    tp_bytes = _state_bytes(model, opt)
+    got = {k: v.cpu() for k, v in gather_train_state(model, opt)["model"].items()}
+    names = [k for k, _ in model.named_parameters()]
+    diff = torch.cat([(got[k].double() - want[k].double()).abs().reshape(-1) for k in names])
+    bn = max(((got[k].double() - want[k].double()).abs() / (TP_TOL["bn_rtol"] * want[k].double().abs()
+                                                            + TP_TOL["bn_atol"])).max().item()
+             for k in want if k.endswith((".mean", ".var")))
+    state_err = max((got[k].double() - want[k].double()).abs().max().item() / max(1.0, want[k].abs().max().item())
+                    for k in want)
+    sharded = sum(1 for m in model.modules() if getattr(m, "shard", None) is not None)
+    dist.barrier()
+    t0 = time.perf_counter()
+    step(image, label)
+    torch.cuda.synchronize()
+    row = {"run": f"make_tp_train_step ({n_data}, {n_model}) ({backend})", "backend": backend,
+           "mesh": [n_data, n_model], "rank": dist.get_rank(), "hw": list(hw), "batch": batch, "dtype": "float32",
+           "loss": loss, "loss_single": loss_single, "loss_rel_err": abs(loss - loss_single) / abs(loss_single),
+           "frac_above_2e-3": (diff > 2e-3).double().mean().item(), "max_param_diff": diff.max().item(),
+           "bn_err_over_tol": bn, "state_err": state_err, "sharded_modules": sharded,
+           "state_bytes_rank": tp_bytes, "state_bytes_unsharded": single_bytes, "peak_gb": peak / 2**30,
+           "step_ms_first": first_ms, "step_ms_second": (time.perf_counter() - t0) * 1e3,
+           "single_step_ms_second": single_ms,
+           "tol": PARALLEL_TOL if n_model == 1 else TP_TOL}
+    print(json.dumps({"phase": "sharded", **row}), flush=True)
+    if n_model == 1:
+        ok = row["loss_rel_err"] <= PARALLEL_TOL["loss"] and state_err <= PARALLEL_TOL["state"]
+    else:
+        ok = (row["loss_rel_err"] <= TP_TOL["loss"] and row["frac_above_2e-3"] < TP_TOL["frac_above_2e-3"]
+              and row["max_param_diff"] < TP_TOL["max"] and bn <= 1.0 and tp_bytes < 0.75 * single_bytes)
+    if not ok or sharded < 10:
+        raise AssertionError(f"tensor-parallel step against the single-device step: {row}")
+    return [row]
+
+
+def _sharded_child():
+    """One rank of phase 15 under the group the environment names
+    (SHARDED_BACKEND: nccl, or gloo for two ranks on cuda:0): spatial
+    sharding over the group, then the TP step on the (1, world) mesh."""
+    import torch.distributed as dist
+
+    from auto_dynamic_deeplab_torch.parallel import DataMesh, destroy, initialize
+    from auto_dynamic_deeplab_torch.runtime import resolve_device
+
+    backend = os.environ["SHARDED_BACKEND"]
+    initialize(device="cuda" if backend == "nccl" else "cpu", timeout_s=600)
+    dev = resolve_device("cuda")  # TF32 off
+    torch.cuda.set_device(0)
+    try:
+        if dist.get_backend() != backend:
+            raise AssertionError(f"want a {backend} group, got {dist.get_backend()}")
+        _sharded_spatial(DataMesh(dist.group.WORLD, dist.get_rank(), dist.get_world_size()), backend, dev)
+        _sharded_tp(1, dist.get_world_size(), backend, dev)
+    finally:
+        destroy()
+
+
+def phase_sharded(ctx):
+    """Spatial sharding and channel tensor parallelism, each rank a child
+    process (as phase 13): world 1 over NCCL, and world 2 as two
+    processes on cuda:0 over gloo (NCCL refuses two ranks on one GPU:
+    compute stays on the card, the exchanged rows and gathers go through
+    host copies)."""
+    if "smi" not in ctx:
+        ctx["smi"] = nvidia_smi_line()
+    total = Counter()
+    for world, backend in ((1, "nccl"), (2, "gloo")):
+        env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()), WORLD_SIZE=str(world),
+                   LOCAL_RANK="0", SHARDED_BACKEND=backend)
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--sharded-child"],
+                                  env={**env, "RANK": str(r)}, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                  text=True) for r in range(world)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=600))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for p, (out, err) in zip(procs, outs):
+            for line in out.splitlines():
+                if line.startswith('{"phase": "sharded"'):
+                    print(line, flush=True)
+                    total.update(json.loads(line).get("launches", {}))
+            if p.returncode != 0:
+                raise AssertionError(f"phase 15 world {world} ({backend}) failed ({p.returncode}): {err[-6000:]}")
+        emit({"phase": "sharded", "check": "seconds", "run": f"world {world} ({backend})",
+              "seconds": time.perf_counter() - t0, "nvidia_smi": ctx["smi"]})
+    if total["fused_stems"] != 3 * 2:  # one K1 a rank an image: worlds 1 and 2, two dtypes
+        raise AssertionError(f"phase 15 launched K1 {total['fused_stems']} times, want 6")
+    ctx["sharded_launches"] = dict(total)
+
+
 def phase_kernels(ctx):
     """The kernels line; a run of a subset of the phases lists the kernels
     whose checks (phases 2-4) ran."""
@@ -2264,6 +2509,7 @@ def phase_kernels(ctx):
             "data_path_launches": ctx.get("data_launches", {}).get(name, 0),
             "parallel_path_launches": ctx.get("parallel_launches", {}).get(name, 0),
             "variants_path_launches": ctx.get("variants_launches", {}).get(name, 0),
+            "sharded_path_launches": ctx.get("sharded_launches", {}).get(name, 0),
             "max_abs_err": main["max_abs_err"],
             "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main.get("library_ms"), "dtype": main["dtype"],
@@ -2292,20 +2538,24 @@ def phase_kernels(ctx):
 PHASES = {
     1: phase_device, 2: phase_k1, 3: phase_k2, 4: phase_cells, 5: phase_model,
     6: phase_main_path, 7: phase_engine, 8: phase_trained, 9: phase_kernels, 10: phase_train,
-    11: phase_search, 12: phase_input_pipeline, 13: phase_parallel, 14: phase_variants,
+    11: phase_search, 12: phase_input_pipeline, 13: phase_parallel, 14: phase_variants, 15: phase_sharded,
 }
 
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--phases", default="1,2,3,4,5,6,7,8,10,11,12,13,14,9")
+    p.add_argument("--phases", default="1,2,3,4,5,6,7,8,10,11,12,13,14,15,9")
     p.add_argument("--parallel-child", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--sharded-child", action="store_true", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: no GPU", file=sys.stderr)
         return 2
     if args.parallel_child:
         _parallel_child()
+        return 0
+    if args.sharded_child:
+        _sharded_child()
         return 0
     phases = [int(v) for v in args.phases.split(",")]
     ctx = {}

@@ -70,6 +70,39 @@ def test_k1_matches_plain_on_gpu(hw, n, dtype):
 
 @needs_gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_sharded_windows_match_whole_image_on_gpu(dtype):
+    """K1 on each rank's row window (spatial sharding, ``_Stems._on_band``):
+    windows from input rows 0, 4, 8 and 88 (the last band) of a 129-row
+    image, each one K1 launch, against the rows of K1 on the whole image
+    (the same products in the same order: relative max error ≤ 1e-6 in
+    fp32, one bf16 rounding in bf16)."""
+    import sys
+
+    from auto_dynamic_deeplab_torch.ops import band
+
+    sys.path.insert(0, __file__.rsplit("/", 1)[0])
+    from torch_sharded_ranks import WindowBands
+
+    torch.backends.cudnn.allow_tf32 = False
+    stems, g = _stems(dtype)
+    x = torch.randn(1, 3, 129, 97, generator=g).cuda()
+    points = (0, 12, 16, 96, 129)
+    with torch.inference_mode():
+        s0, s1 = stems(x)
+        for rank in range(len(points) - 1):
+            bands = WindowBands(129, points, rank, x)
+            lo, hi = bands.band(129)
+            before = pt_stems.fused_stems.launches
+            b0, b1 = stems(band.wrap(x[:, :, lo:hi], 129, bands))
+            assert pt_stems.fused_stems.launches == before + 1
+            (a0, e0), (a1, e1) = bands.band(65), bands.band(33)
+            tol = 1e-6 if dtype == torch.float32 else 1e-2
+            assert _rel_err(band.local(b0), s0[:, :, a0:e0]) <= tol
+            assert _rel_err(band.local(b1), s1[:, :, a1:e1]) <= tol
+
+
+@needs_gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("tile", pt_stems.STEM_TILES)
 def test_k1_every_tile_on_gpu(tile, dtype):
     """Every tile of STEM_TILES, at batch 2 with ragged last tiles, from a

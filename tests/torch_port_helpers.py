@@ -97,3 +97,36 @@ def tf32(x: torch.Tensor) -> torch.Tensor:
     zero, on the 13 low mantissa bits (added to the magnitude, then masked)."""
     bits = x.view(torch.int32)
     return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def run_ranks(world: int, argv, cwd: str, timeout: float = 120.0):
+    """``python *argv`` as ranks 0..world-1 of a gloo group on localhost
+    (WORLD_SIZE, RANK, MASTER_ADDR, MASTER_PORT; one thread each), each
+    waited on for ``timeout`` s; the rest are killed if one fails or
+    hangs. Returns their outputs."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("COORDINATOR_ADDRESS", "NUM_PROCESSES", "PROCESS_ID", "LOCAL_RANK")}
+    env.update(OMP_NUM_THREADS="1", MASTER_ADDR="localhost", MASTER_PORT=str(port), WORLD_SIZE=str(world))
+    env["PYTHONPATH"] = cwd + os.pathsep + env.get("PYTHONPATH", "")
+    procs = [subprocess.Popen([sys.executable, *argv], env={**env, "RANK": str(r)}, cwd=cwd,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-4000:]
+    return outs
