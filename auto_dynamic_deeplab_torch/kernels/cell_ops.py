@@ -40,6 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..nas.genotypes import PRIMITIVES
+from ..ops import band
 from ..ops.primitives import avg_pool_3x3, max_pool_3x3, weights_key
 from ._build import load_library
 
@@ -739,28 +740,53 @@ def _per_op(x: torch.Tensor, name: str, op: nn.Module) -> torch.Tensor:
     return sep_stage(mid, name, w[1], in_relu=False, out_relu=False)
 
 
+def _run_block(xs, names: Sequence[str], ops: Sequence[nn.Module], dst: torch.Tensor, start: int = 0):
+    """One block of ``run_dag`` on its input states ``xs`` (windows of
+    rows from ``start`` on, or the states themselves), written into
+    ``dst``: K3 where its route says so, else op by op summed in torch."""
+    C, h = dst.shape[1], dst.shape[2]
+    whole = not xs or xs[0].shape[2] == h
+    if block_route(names, C, dst.dtype) == ("block_stage",):
+        edges = [(x, n, edge_weights(op, n, x.dtype)) for x, n, op in zip(xs, names, ops) if n != "none"]
+        if whole:
+            block_stage(edges, out=dst)
+        else:
+            dst.copy_(block_stage(edges)[:, :, start:start + h])
+        return
+    outs = [_per_op(x, n, op) for x, n, op in zip(xs, names, ops)]
+    total = outs[0] if outs else torch.zeros_like(xs[0] if xs else dst)
+    for o in outs[1:]:
+        total = total + o
+    dst.copy_(total if whole else total[:, :, start:start + h])
+
+
 def run_dag(s0: torch.Tensor, s1: torch.Tensor, assignment, B: int, ops: Sequence[nn.Module],
             primitives=PRIMITIVES) -> torch.Tensor:
     """A cell's B-block DAG (run_dag_flat, cell_ops.py:985) over the states
     s0, s1 (N, C, H, W) and the cell's ops in ascending edge order. Returns
     the channel concat of the B block states, (N, B*C, H, W) channels_last:
     each block is written into its channel slice, and later blocks read
-    their inputs from there."""
+    their inputs from there. On row bands (spatial sharding) each block
+    runs on a window of global rows around the band (``band.block_windows``)
+    and keeps the band's rows; a rank without rows at this level launches
+    nothing but still fetches."""
+    banded = band.is_band(s1)
+    if banded:
+        rows, bands = s1.rows, s1.bands
+        if not band.is_band(s0) or (s0.rows, s0.row_dim, s1.row_dim) != (rows, 2, 2):
+            raise ValueError("run_dag on bands: s0 and s1 must be NCHW bands of the same rows")
+        s0, s1 = band.local(s0), band.local(s1)
     N, C, H, W = s1.shape
     # the preprocess 1x1s hand over channels_last states: no copy for them
     states = [s.contiguous(memory_format=torch.channels_last) for s in (s0, s1)]
     concat = torch.empty((N, H, W, B * C), dtype=s1.dtype, device=s1.device).permute(0, 3, 1, 2)
-    for b, rows in enumerate(dag_blocks(assignment, B)):
+    for b, block in enumerate(dag_blocks(assignment, B)):
         dst = concat[:, b * C:(b + 1) * C]
-        names = [primitives[p] for _, _, p in rows]
-        active = [(states[j], n, ops[i]) for (j, i, _), n in zip(rows, names) if n != "none"]
-        if block_route(names, C, s1.dtype) == ("block_stage",):
-            block_stage([(x, n, edge_weights(op, n, x.dtype)) for x, n, op in active], out=dst)
-        else:
-            outs = [_per_op(states[j], n, ops[i]) for (j, i, _), n in zip(rows, names)]
-            total = outs[0] if outs else torch.zeros_like(s1)
-            for o in outs[1:]:
-                total = total + o
-            dst.copy_(total)
+        names = [primitives[p] for _, _, p in block]
+        xs, start = [states[j] for j, _, _ in block], 0
+        if banded:
+            xs, start = band.block_windows(xs, rows, bands, names)
+        if H > 0:
+            _run_block(xs, names, [ops[i] for _, i, _ in block], dst, start)
         states.append(dst)
-    return concat
+    return band.wrap(concat, rows, bands) if banded else concat

@@ -15,7 +15,10 @@ eval mode by one of the JAX package's ``--cell-exec`` variants:
 Training runs the per-op modules whatever ``packed_eval`` and
 ``dense_sep_eval`` say (the same parameters); ``flat_eval`` refuses it.
 The packed weights are folded once per weight version and kept on the
-cell (``packed_weights``).
+cell (``packed_weights``). Every execution takes row bands (spatial
+sharding): the flat DAG runs each block on a window of rows around the
+band (``run_dag``), the packed convs and the dense-sep convs take the
+band rules of ``ops/band.py``.
 
 A cell is a B-block DAG over states [s0, s1, block_0, ..., block_{B-1}];
 block i consumes edges offset..offset+len(states)-1 with

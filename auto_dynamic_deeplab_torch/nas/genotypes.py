@@ -7,6 +7,8 @@ network path is a length-12 array of levels in {0,1,2,3} (stride 4/8/16/32).
 """
 from __future__ import annotations
 
+from typing import NamedTuple, Sequence
+
 import numpy as np
 
 PRIMITIVES = [
@@ -19,6 +21,14 @@ PRIMITIVES = [
     "dil_conv_3x3",
     "dil_conv_5x5",
 ]
+
+
+class Genotype(NamedTuple):
+    """The reference's genotype record (modeling/genotypes.py): a cell's
+    rows and the states its output concatenates."""
+
+    cell: Sequence
+    cell_concat: Sequence
 
 
 def num_edges(B: int) -> int:

@@ -281,6 +281,32 @@ def mean_hw(x: RowBand) -> torch.Tensor:
     return (s / (x.rows * local(x).shape[3])).to(x.dtype)
 
 
+# rows a cell-DAG primitive reads on each side of an output row: a SepConv
+# two stride-1 stages of k//2, a DilConv (dilation 2) 2·(k//2), a 3x3 pool 1
+ROW_RADIUS = {"none": 0, "skip_connect": 0, "max_pool_3x3": 1, "avg_pool_3x3": 1, "sep_conv_3x3": 2,
+              "sep_conv_5x5": 4, "dil_conv_3x3": 2, "dil_conv_5x5": 4}
+
+
+def block_windows(xs, rows: int, bands, names) -> Tuple[list, int]:
+    """The band rule of one cell-DAG block (``kernels.cell_ops.run_dag``):
+    each of ``xs`` (this rank's rows, NCHW, of states of ``rows`` global
+    rows; plain tensors) fetched over the global rows [max(0, lo − R),
+    min(rows, hi + R)), R the largest ``ROW_RADIUS`` of the block's ops
+    ``names``. The window is clipped, not filled: the block's kernel pads
+    at the window's edges as at the image's, which is right at the global
+    edges, and its rows within R of an inner edge are computed and thrown
+    away. Returns (windows, the band's first row in them). Every rank
+    fetches, a rank without rows too (an empty window)."""
+    radius = max((ROW_RADIUS[n] for n in names), default=0)
+
+    def window(r):
+        lo, hi = bands.band(rows, r)
+        return (lo, lo) if hi == lo else (max(0, lo - radius), min(rows, hi + radius))
+
+    wins = [bands.fetch(x, rows, 2, window, 0.0) for x in xs]
+    return wins, bands.band(rows)[0] - window(bands.rank)[0]
+
+
 def broadcast_rows(t: torch.Tensor, like: RowBand) -> RowBand:
     """A (N, C, 1, 1) tensor every rank holds, spread over ``like``'s band
     (the align-corners resize of a 1×1 map: every output is its value)."""

@@ -18,7 +18,9 @@ The dense taps' projections (ADD.py:47-52) run as one block-diagonal 1x1
 code (cuDNN convs here): no hand-written kernel computes it. Rounding
 follows the JAX package: the folded weights are built in fp32 and cast
 once to the compute dtype, and each conv adds its bias in that dtype.
-Training keeps the per-op modules (per-op batch statistics).
+Training keeps the per-op modules (per-op batch statistics). On a row
+band (spatial sharding) the convs and pools take their band rules
+(``ops/band.py``).
 
 The schedule is static per genotype (host code). The folded weights of a
 cell (``wave_weights``, ``pw_group``; the eval BN folded by ``fold_bn``)
@@ -33,7 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from ..nas.genotypes import PRIMITIVES
-from .primitives import avg_pool_3x3, max_pool_3x3
+from .primitives import avg_pool_3x3, conv2d, max_pool_3x3
 
 # ---------------------------------------------------------------- schedule
 
@@ -217,24 +219,24 @@ def packed_sep(xs: List[torch.Tensor], w: SepGroup, dtype: Optional[torch.dtype]
     """G sep convs (mixed 3x3/5x5) over their channel concat."""
     x = F.relu(_cat(xs)).to(dtype or xs[0].dtype)
     p = w.k // 2
-    x = F.conv2d(x, w.dw1, None, 1, p, 1, x.shape[1])
-    x = F.relu(F.conv2d(x, w.pw1, w.b1))
-    x = F.conv2d(x, w.dw2, None, 1, p, 1, x.shape[1])
-    return _split(F.conv2d(x, w.pw2, w.b2), w.sizes)
+    x = conv2d(x, w.dw1, None, 1, p, 1, x.shape[1])
+    x = F.relu(conv2d(x, w.pw1, w.b1))
+    x = conv2d(x, w.dw2, None, 1, p, 1, x.shape[1])
+    return _split(conv2d(x, w.pw2, w.b2), w.sizes)
 
 
 def packed_dil(xs: List[torch.Tensor], w: ConvGroup, dtype: Optional[torch.dtype]) -> List[torch.Tensor]:
     """G dilated (d=2) convs over their concat as one block-diagonal conv."""
     x = F.relu(_cat(xs)).to(dtype or xs[0].dtype)
     k = w.w.shape[-1]
-    return _split(F.conv2d(x, w.w, w.b, 1, k - 1, 2), w.sizes)
+    return _split(conv2d(x, w.w, w.b, 1, k - 1, 2), w.sizes)
 
 
 def packed_relu_conv_bn_1x1(xs: List[torch.Tensor], w: ConvGroup, dtype: Optional[torch.dtype]) -> torch.Tensor:
     """G independent ReLU→1x1 conv→BN stages over their concat as one
     block-diagonal 1x1; returns the still-concatenated result."""
     x = F.relu(_cat(xs)).to(dtype or xs[0].dtype)
-    return F.conv2d(x, w.w, w.b)
+    return conv2d(x, w.w, w.b)
 
 
 def packed_pool(xs: List[torch.Tensor], kind: str) -> List[torch.Tensor]:

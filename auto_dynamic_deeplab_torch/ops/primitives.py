@@ -64,11 +64,9 @@ class Conv2d(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x, w = _cast(x, self.kernel, self.dtype)
         b = None if self.bias is None else self.bias.to(w.dtype)
-        if band.is_band(x):
-            return band.conv2d(x, w, b, self.stride, self.padding, self.dilation, self.groups)
-        if self.shard is not None:
+        if self.shard is not None and not band.is_band(x):
             return self.shard.conv2d(self, x, w, b)
-        return F.conv2d(x, w, b, self.stride, self.padding, self.dilation, self.groups)
+        return conv2d(x, w, b, self.stride, self.padding, self.dilation, self.groups)
 
 
 class Dense(nn.Module):
@@ -83,6 +81,14 @@ class Dense(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x, w = _cast(x, self.kernel, self.dtype)
         return F.linear(x, w, self.bias.to(w.dtype))
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None, stride: int = 1, padding: int = 0,
+           dilation: int = 1, groups: int = 1) -> torch.Tensor:
+    """``F.conv2d`` with symmetric padding; on a band its band rule."""
+    if band.is_band(x):
+        return band.conv2d(x, w, b, stride, padding, dilation, groups)
+    return F.conv2d(x, w, b, stride, padding, dilation, groups)
 
 
 def max_pool_3x3(x: torch.Tensor, stride: int) -> torch.Tensor:
@@ -221,8 +227,8 @@ class SepConv(nn.Module):
         if self.dense_form and not self.training:
             dt = self.dtype or x.dtype
             k1, k2 = self.composed(dt)
-            x = self.bn1(F.conv2d(F.relu(x).to(dt), k1, None, self.stride, self.padding))
-            return self.bn2(F.conv2d(F.relu(x).to(dt), k2, None, 1, self.padding))
+            x = self.bn1(conv2d(F.relu(x).to(dt), k1, None, self.stride, self.padding))
+            return self.bn2(conv2d(F.relu(x).to(dt), k2, None, 1, self.padding))
         x = self.bn1(self.pw1(self.dw1(F.relu(x))))
         return self.bn2(self.pw2(self.dw2(F.relu(x))))
 

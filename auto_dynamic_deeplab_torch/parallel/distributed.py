@@ -124,15 +124,6 @@ class SpatialForward:
     is what this rank received in its last call."""
 
     def __init__(self, model: torch.nn.Module, group):
-        from ..models.cell import FixedCell
-        from ..ops.primitives import SepConv
-
-        for name, m in model.named_modules():
-            if isinstance(m, FixedCell) and (m.flat_eval or m.packed_eval) or \
-                    isinstance(m, SepConv) and m.dense_form:
-                raise ValueError(
-                    f"spatial sharding covers the default cell execution (xla) only: {name or 'the model'} runs "
-                    "--cell-exec flat, packed, flat-packed or dense-sep; build the model without them")
         self.model, self.group = model, group
         self.exchanged_bytes = 0
 
@@ -173,8 +164,9 @@ def spatial_shard_forward(model: torch.nn.Module, mesh=None, axis: str = DATA_AX
     one band); the parameters are every rank's own, whole. Each rank
     computes its band of every activation from global rows that the
     others send it (``RowBands.fetch``): the halo exchanges GSPMD inserts
-    for the JAX package. The default cell execution only (xla): a model
-    with flat, packed or dense-sep cells raises ``ValueError``."""
+    for the JAX package. Every cell execution: xla, flat (K3-K6 on a
+    window of rows around the band, ``band.block_windows``), packed,
+    flat-packed and dense-sep."""
     if mesh is None:
         return SpatialForward(model, None)
     if isinstance(mesh, Mesh):

@@ -108,7 +108,13 @@ class RowBands:
         """Global rows ``window(self.rank)`` of a tensor of ``rows`` global
         rows along ``dim``, of which ``x`` holds this rank's band; rows
         outside [0, rows) are ``fill``. A collective: every rank calls it
-        with the same ``window``, which gives each rank's request."""
+        with the same ``window``, which gives each rank's request. An NCHW
+        ``x`` whose channels are innermost (channels_last, or a channel
+        slice of such a buffer) gives a channels_last window: the rows
+        move as NHWC, as the cell kernels and cuDNN's channels_last convs
+        take them."""
+        if dim == 2 and x.dim() == 4 and x.shape[1] > 1 and x.stride(1) == 1:
+            return self.fetch(x.permute(0, 2, 3, 1), rows, 1, window, fill).permute(0, 3, 1, 2)
         own = self.band(rows)
         if x.shape[dim] != own[1] - own[0]:
             raise ValueError(f"band [{own[0]}, {own[1]}) of {rows} rows, got {x.shape[dim]} rows")

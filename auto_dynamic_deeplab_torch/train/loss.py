@@ -64,3 +64,22 @@ def multi_exit_cross_entropy(
         raise NotImplementedError(reduce)
     total = sum(cross_entropy(lg, target, weight, ignore_index) for lg in logits_list)
     return total / len(logits_list) if reduce == "mean" else total
+
+
+class SegmentationLosses:
+    """API parity with the reference's loss factory (utils/loss.py:4-25):
+    ``SegmentationLosses(weight, ignore_index).build_loss("ce")`` is a
+    callable ``(logits (N, C, H, W), target (N, H, W)) -> scalar`` with
+    ``cross_entropy``'s semantics; other modes raise."""
+
+    def __init__(self, weight=None, ignore_index: int = 255):
+        self.weight = None if weight is None else torch.as_tensor(weight, dtype=torch.float32)
+        self.ignore_index = ignore_index
+
+    def build_loss(self, mode: str = "ce") -> "SegmentationLosses":
+        if mode != "ce":
+            raise NotImplementedError(mode)
+        return self
+
+    def __call__(self, logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+        return cross_entropy(logits, target, self.weight, self.ignore_index)

@@ -8,7 +8,7 @@
     python3 chip_smoke.py --phases 1,2,3,12,9  # the input pipeline, with K1's and K2's checks
     python3 chip_smoke.py --phases 1,13        # the parallel modes
     python3 chip_smoke.py --phases 1,14        # the other --cell-exec values and --flops
-    python3 chip_smoke.py --phases 1,15        # spatial sharding and tensor parallelism
+    python3 chip_smoke.py --phases 1,15        # spatial sharding (every cell execution) and tensor parallelism
 
 Phases, each printing JSON lines and raising on failure:
   1. device: the card, its power limit and the kernels' build time (every
@@ -144,16 +144,23 @@ Phases, each printing JSON lines and raising on failure:
      fused p50 of 20 images after 3, early exit and full depth, with
      device ms, host launches and readbacks per image;
   15. spatial sharding and channel tensor parallelism, run before the
-     summary, each rank a child process (``--sharded-child``), world 1 then
-     world 2: the flagship
-     at 1025x2049, batch 1, fp32 and bf16, through spatial_shard_forward
+     summary: first K3, K4, K5 and K6 each on the window of rows the flat
+     DAG's block rule fetches for a band that starts mid-map, at the
+     flagship's widths (against the plain versions on the window and the
+     whole map's kernel output); then each rank a child process
+     (``--sharded-child``), world 1 then world 2: the flagship
+     at 1025x2049, batch 1, through spatial_shard_forward
      at world 1 over NCCL (the band is the image) and at world 2 as two
      processes on cuda:0 over gloo (NCCL refuses two ranks on one GPU;
-     compute stays on the card, the exchanged rows go through the host):
-     each rank's rows against the unsharded forward on the card
-     (SHARDED_TOL of max|ref|), exactly one K1 launch a rank an image,
-     each rank's peak memory beside the unsharded forward's, the bytes of
-     rows it received and the p50s of both; then, in the same processes,
+     compute stays on the card, the exchanged rows go through the host),
+     xla in fp32 and bf16, then SHARDED_RUNS: flat (fp32, bf16),
+     flat-packed with the mixed genotype (fp32: K4 and K6), packed and
+     dense-sep (fp32, bf16): each rank's rows against the same
+     execution's unsharded forward on the card (SHARDED_TOL of max|ref|),
+     exactly one K1 launch a rank an image and the flat runs' K3-K6
+     launches against the routes of the cells whose level holds rows on
+     the rank, each rank's peak memory beside the unsharded forward's, the
+     bytes of rows it received and the p50s of both; then, in the same processes,
      one fp32 step of make_tp_train_step on a 1x1 mesh over NCCL (769x769, batch 4) against
      TrainStep on the same state and batch (PARALLEL_TOL), and on a (1, 2)
      mesh over gloo on cuda:0 at SHARDED_TP_HW, batch 2 (every gather goes
@@ -692,16 +699,16 @@ def _flagship_genotype():
     return AUTODEEPLAB_GENOTYPE
 
 
-def _flagship(dtype=None, seed=0, flat_eval=False, **flags):
+def _flagship(dtype=None, seed=0, flat_eval=False, genotype=None, **flags):
     """The flagship ADD with seeded weights; the same seed gives the same
     weights with any cell execution (``flags``: ``packed_eval``,
-    ``dense_sep_eval``)."""
+    ``dense_sep_eval``); ``genotype`` replaces the flagship's cells."""
     from auto_dynamic_deeplab_torch.models import ADD
     from auto_dynamic_deeplab_torch.nas import AUTODEEPLAB_GENOTYPE, NETWORK_ARCH
     from auto_dynamic_deeplab_torch.utils.initialize import init_params, randomize_bn
 
     cfg = NETWORK_ARCH[2]
-    model = ADD(cfg["path"], cfg["C_index"], AUTODEEPLAB_GENOTYPE, 19, F=20, B=5,
+    model = ADD(cfg["path"], cfg["C_index"], AUTODEEPLAB_GENOTYPE if genotype is None else genotype, 19, F=20, B=5,
                 low_level_layer=cfg["low_level_layer"], dtype=dtype, flat_eval=flat_eval, **flags)
     g = torch.Generator().manual_seed(seed)
     return randomize_bn(init_params(model, g), g).eval()
@@ -2270,6 +2277,15 @@ def phase_variants(ctx):
 
 
 SHARDED_IMAGES = 5    # timed forwards of each kind after one warm-up
+# the other cell executions under spatial sharding, (--cell-exec, dtype, mixed
+# genotype), each SHARDED_RUN_IMAGES timed forwards after one warm-up:
+# flat-packed with the mixed genotype runs K4 and K6, flat fp32 K3, K5 and K6
+SHARDED_RUNS = (
+    ("flat", torch.float32, False), ("flat", torch.bfloat16, False), ("flat-packed", torch.float32, True),
+    ("packed", torch.float32, False), ("packed", torch.bfloat16, False),
+    ("dense-sep", torch.float32, False), ("dense-sep", torch.bfloat16, False),
+)
+SHARDED_RUN_IMAGES = 3
 SHARDED_TP_HW, SHARDED_TP_BATCH = (385, 385), 2  # the (1, 2) TP step's crop: every gather goes through the host
 # spatial sharding against the unsharded forward on the card, |Δ| ≤ tol·max|ref|:
 # fp32 sums a band's convs and resizes in another order; bf16 also rounds
@@ -2280,76 +2296,98 @@ SHARDED_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
 TP_TOL = {"loss": 2e-4, "frac_above_2e-3": 0.05, "max": 0.05, "bn_rtol": 1e-2, "bn_atol": 1e-4}
 
 
-def _sharded_spatial(mesh, backend, dev):
-    """Spatial sharding of the flagship at FULL_HW, fp32 and bf16, on this
-    rank's band: its rows against the unsharded forward's, one K1 launch,
-    peak memory, bytes received, p50s. Returns the rows to print."""
+def _spatial_run(mesh, backend, dev, cell_exec, dtype, genotype, images):
+    """One spatially sharded forward of the flagship at FULL_HW on this
+    rank's band: its rows against the same execution's unsharded forward,
+    one K1 launch, K3-K6 launches against the routes (every cell whose
+    level holds rows on this rank), peak memory, bytes received, p50s.
+    Returns the row."""
     import torch.distributed as dist
 
+    from auto_dynamic_deeplab_torch.cli.evaluate import CELL_EXEC
     from auto_dynamic_deeplab_torch.kernels.stems import fused_stems
+    from auto_dynamic_deeplab_torch.nas import NETWORK_ARCH
     from auto_dynamic_deeplab_torch.parallel import spatial_shard_forward
 
-    rows, world = [], dist.get_world_size()
-    for dtype in (torch.float32, torch.bfloat16):
-        dname = str(dtype).split(".")[-1]
-        model = _flagship(dtype).to(dev)
-        g = torch.Generator(device=dev).manual_seed(7)
-        x = torch.randn(1, *FULL_HW, 3, generator=g, device=dev)
-        fwd = spatial_shard_forward(model, mesh)
-        lo, hi = fwd.bands(FULL_HW[0]).band(FULL_HW[0])
-        fwd(x)  # warm-up: cuDNN's choices, K1's packed weights
-        torch.cuda.synchronize()
+    world, dname = dist.get_world_size(), str(dtype).split(".")[-1]
+    model = _flagship(dtype, genotype=genotype, **CELL_EXEC[cell_exec]).to(dev)
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn(1, *FULL_HW, 3, generator=g, device=dev)
+    fwd = spatial_shard_forward(model, mesh)
+    bands = fwd.bands(FULL_HW[0])
+    lo, hi = bands.band(FULL_HW[0])
+    fns = {"fused_stems": fused_stems, **_cell_fns()}
+    fwd(x)  # warm-up: cuDNN's choices, the kernels' folded weights
+    torch.cuda.synchronize()
+    dist.barrier()
+    for f in fns.values():
+        f.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    outs = fwd(x)
+    torch.cuda.synchronize()
+    launches = {name: f.launches for name, f in fns.items()}
+    peak_sharded = torch.cuda.max_memory_allocated(dev)
+    exchanged = fwd.exchanged_bytes
+    outs = [o.float().cpu() for o in outs]
+    times = []
+    for _ in range(images):
         dist.barrier()
-        fused_stems.launches = 0
-        torch.cuda.reset_peak_memory_stats(dev)
-        outs = fwd(x)
+        t0 = time.perf_counter()
+        fwd(x)
         torch.cuda.synchronize()
-        k1 = fused_stems.launches
-        peak_sharded = torch.cuda.max_memory_allocated(dev)
-        exchanged = fwd.exchanged_bytes
-        outs = [o.float().cpu() for o in outs]
-        times = []
-        for _ in range(SHARDED_IMAGES):
-            dist.barrier()
-            t0 = time.perf_counter()
-            fwd(x)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        with torch.no_grad():
-            model(x)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats(dev)
-            refs = [r.float().cpu() for r in model(x)]
-            peak_plain = torch.cuda.max_memory_allocated(dev)
-            plain_times = []
-            dist.barrier()
-            if dist.get_rank() == 0:  # alone on the card
-                for _ in range(SHARDED_IMAGES):
-                    t0 = time.perf_counter()
-                    model(x)
-                    torch.cuda.synchronize()
-                    plain_times.append((time.perf_counter() - t0) * 1e3)
-            dist.barrier()
-        errs = []
-        for o, r in zip(outs, refs):
-            want = r[:, lo:hi]
-            if o.shape != want.shape or not torch.isfinite(o).all():
-                raise AssertionError(f"spatial {dname}: rows {tuple(o.shape)}, want {tuple(want.shape)}")
-            errs.append({"max_abs_err": (o - want).abs().max().item(), "max_abs_ref": r.abs().max().item()})
-        row = {"run": f"spatial_shard_forward world {world} ({backend})", "backend": backend, "world": world,
-               "rank": dist.get_rank(), "dtype": dname, "hw": list(FULL_HW), "band": [lo, hi], "exits": errs,
-               "tol_rel_to_max_ref": SHARDED_TOL[dname], "k1_launches": k1, "exchanged_bytes_per_image": exchanged,
-               "peak_gb_sharded": peak_sharded / 2**30, "peak_gb_unsharded": peak_plain / 2**30,
-               "p50_ms_sharded": statistics.median(times), "ms_sharded": times,
-               "p50_ms_unsharded": statistics.median(plain_times) if plain_times else None,
-               "launches": {"fused_stems": k1}}
-        rows.append(row)
-        print(json.dumps({"phase": "sharded", **row}), flush=True)
-        bad = [e for e in errs if e["max_abs_err"] > SHARDED_TOL[dname] * e["max_abs_ref"]]
-        if bad or k1 != 1:
-            raise AssertionError(f"spatial sharding {dname} world {world}: {row}")
-        del model, fwd, outs, refs
-        torch.cuda.empty_cache()
+        times.append((time.perf_counter() - t0) * 1e3)
+    with torch.no_grad():
+        model(x)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        refs = [r.float().cpu() for r in model(x)]
+        peak_plain = torch.cuda.max_memory_allocated(dev)
+        plain_times = []
+        dist.barrier()
+        if dist.get_rank() == 0:  # alone on the card
+            for _ in range(images):
+                t0 = time.perf_counter()
+                model(x)
+                torch.cuda.synchronize()
+                plain_times.append((time.perf_counter() - t0) * 1e3)
+        dist.barrier()
+    errs = []
+    for o, r in zip(outs, refs):
+        want = r[:, lo:hi]
+        if o.shape != want.shape or not torch.isfinite(o).all():
+            raise AssertionError(f"spatial {cell_exec} {dname}: rows {tuple(o.shape)}, want {tuple(want.shape)}")
+        errs.append({"max_abs_err": (o - want).abs().max().item(), "max_abs_ref": r.abs().max().item(),
+                     "bitwise": torch.equal(o, want)})
+    spans = {level: bands.band(h) for level, (_, h, _) in enumerate(CELL_SHAPES, start=1)}
+    held = [i for i, level in enumerate(NETWORK_ARCH[2]["path"]) if spans[level][1] > spans[level][0]]
+    want_cells = expected_cell_launches(genotype or _flagship_genotype(), dtype, held) \
+        if CELL_EXEC[cell_exec].get("flat_eval") else Counter()
+    row = {"run": f"spatial_shard_forward world {world} ({backend})", "backend": backend, "world": world,
+           "rank": dist.get_rank(), "cell_exec": cell_exec, "genotype": "mixed" if genotype else "flagship",
+           "dtype": dname, "hw": list(FULL_HW), "band": [lo, hi], "exits": errs,
+           "tol_rel_to_max_ref": SHARDED_TOL[dname], "k1_launches": launches["fused_stems"],
+           "cells_holding_rows": len(held), "cell_launches_want": {k: want_cells.get(k, 0) for k in CELL_KERNELS},
+           "exchanged_bytes_per_image": exchanged, "peak_gb_sharded": peak_sharded / 2**30,
+           "peak_gb_unsharded": peak_plain / 2**30, "p50_ms_sharded": statistics.median(times), "ms_sharded": times,
+           "p50_ms_unsharded": statistics.median(plain_times) if plain_times else None, "launches": launches}
+    print(json.dumps({"phase": "sharded", **row}), flush=True)
+    bad = [e for e in errs if e["max_abs_err"] > SHARDED_TOL[dname] * e["max_abs_ref"]]
+    if bad or launches["fused_stems"] != 1 or any(launches[k] != want_cells.get(k, 0) for k in CELL_KERNELS):
+        raise AssertionError(f"spatial sharding {cell_exec} {dname} world {world}: {row}")
+    del model, fwd, outs, refs
+    torch.cuda.empty_cache()
+    return row
+
+
+def _sharded_spatial(mesh, backend, dev):
+    """Spatial sharding of the flagship at FULL_HW: the default execution
+    (xla) in fp32 and bf16 over SHARDED_IMAGES timed forwards, then each
+    of SHARDED_RUNS over SHARDED_RUN_IMAGES. Returns the rows."""
+    rows = [_spatial_run(mesh, backend, dev, "xla", dtype, None, SHARDED_IMAGES)
+            for dtype in (torch.float32, torch.bfloat16)]
+    for cell_exec, dtype, mixed in SHARDED_RUNS:
+        rows.append(_spatial_run(mesh, backend, dev, cell_exec, dtype, MIXED_GENOTYPE if mixed else None,
+                                 SHARDED_RUN_IMAGES))
     return rows
 
 
@@ -2456,14 +2494,99 @@ def _sharded_child():
         destroy()
 
 
+class _RowSplit:
+    """Rank 1 of a 3-way row split, in one process: ``fetch`` cuts the
+    window it is asked for (inside the map: the block rule clips it) out
+    of whichever of ``wholes`` holds the band, channels_last."""
+
+    rank, world = 1, 3
+
+    def __init__(self, wholes):
+        self.wholes = wholes
+
+    def band(self, rows, rank=None):
+        r = self.rank if rank is None else rank
+        return rows * r // self.world, rows * (r + 1) // self.world
+
+    def fetch(self, x, rows, dim, window, fill):
+        lo, hi = window(self.rank)
+        whole = next(w for w in self.wholes if w.untyped_storage().data_ptr() == x.untyped_storage().data_ptr())
+        return whole[:, :, lo:hi].contiguous(memory_format=torch.channels_last)
+
+
+# K3-K6 on a row window: (kernel, a block whose route runs it, level); K5
+# takes the per-op sep5 only in fp32 at C=160 (bf16 runs that block by K3)
+WINDOW_BLOCKS = (
+    ("block_stage", ("dil_conv_5x5", "sep_conv_3x3"), 1), ("sep_fused", ("max_pool_3x3", "sep_conv_3x3"), 1),
+    ("sep_stage", ("sep_conv_5x5", "none"), 3), ("dense_stage", ("avg_pool_3x3", "dil_conv_5x5"), 2),
+)
+WINDOW_TOL = {"float32": 1e-6, "bfloat16": 1e-2}  # band rows against the whole map's kernel output
+
+
+def _window_checks(ctx):
+    """Each cell kernel (K3-K6) on the window of rows that the flat DAG's
+    block rule (``band.block_windows``) fetches for the middle band of a
+    3-way split, which starts mid-map, at the flagship's widths and sizes:
+    its launches against the block's route, the band rows against the
+    plain versions on the same window (phase 4's bounds) and against the
+    whole map's kernel output (WINDOW_TOL; bitwise reported)."""
+    import copy
+
+    from auto_dynamic_deeplab_torch.kernels import cell_ops as co
+    from auto_dynamic_deeplab_torch.ops import band
+    from auto_dynamic_deeplab_torch.ops.primitives import OPS
+    from auto_dynamic_deeplab_torch.utils.initialize import init_params, randomize_bn
+
+    torch.backends.cudnn.allow_tf32 = False
+    rows = []
+    for kernel, names, level in WINDOW_BLOCKS:
+        c, h, w = CELL_SHAPES[level - 1]
+        for dtype in (torch.float32,) if kernel == "sep_stage" else (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            route = co.block_route(names, c, dtype)
+            gen = torch.Generator().manual_seed(60)
+            ops = [randomize_bn(init_params(OPS[n](c, 1), gen), gen).cuda().eval() for n in names]
+            xs = [torch.randn(1, h, w, c, generator=gen).to("cuda", dtype).permute(0, 3, 1, 2) for _ in names]
+            fn = getattr(co, kernel)
+            with torch.inference_mode():
+                whole = torch.empty(1, h, w, c, device="cuda", dtype=dtype).permute(0, 3, 1, 2)
+                co._run_block(xs, names, ops, whole)
+                split = _RowSplit(xs)
+                lo, hi = split.band(h)
+                wins, start = band.block_windows([x[:, :, lo:hi] for x in xs], h, split, names)
+                dst = torch.empty(1, hi - lo, w, c, device="cuda", dtype=dtype).permute(0, 3, 1, 2)
+                before = fn.launches
+                co._run_block(wins, names, ops, dst, start)
+                torch.cuda.synchronize()
+                launched = fn.launches - before
+                plain = torch.empty(1, c, hi - lo, w, dtype=dtype)
+                co._run_block([t.cpu() for t in wins], names, [copy.deepcopy(op).cpu() for op in ops], plain, start)
+            got, band_rows = dst.double().cpu(), whole[:, :, lo:hi].double().cpu()
+            row = {"kernel": kernel, "edges": list(names), "dtype": dname, "shape": [c, h, w], "band": [lo, hi],
+                   "window": [lo - start, lo - start + wins[0].shape[2]], "launches": launched,
+                   "launches_want": route.count(kernel),
+                   "rel_err_plain": ((got - plain.double()).abs().max() / plain.double().abs().max()).item(),
+                   "tol_plain": 1e-4 if dtype == torch.float32 else 2e-2,
+                   "rel_err_whole": ((got - band_rows).abs().max() / band_rows.abs().max()).item(),
+                   "tol_whole": WINDOW_TOL[dname], "bitwise_whole": torch.equal(got, band_rows)}
+            emit({"phase": "sharded", "check": "window", **row, "nvidia_smi": ctx["smi"]})
+            rows.append(row)
+            if launched != row["launches_want"] or launched == 0 or not row["rel_err_plain"] <= row["tol_plain"] \
+                    or not row["rel_err_whole"] <= row["tol_whole"]:
+                raise AssertionError(f"{kernel} on a row window: {row}")
+    return rows
+
+
 def phase_sharded(ctx):
-    """Spatial sharding and channel tensor parallelism, each rank a child
-    process (as phase 13): world 1 over NCCL, and world 2 as two
-    processes on cuda:0 over gloo (NCCL refuses two ranks on one GPU:
-    compute stays on the card, the exchanged rows and gathers go through
-    host copies)."""
+    """Spatial sharding and channel tensor parallelism: first K3-K6 on row
+    windows in this process, then each rank a child process (as phase 13):
+    world 1 over NCCL, and world 2 as two processes on cuda:0 over gloo
+    (NCCL refuses two ranks on one GPU: compute stays on the card, the
+    exchanged rows and gathers go through host copies)."""
     if "smi" not in ctx:
         ctx["smi"] = nvidia_smi_line()
+    t_phase = time.perf_counter()
+    _window_checks(ctx)
     total = Counter()
     for world, backend in ((1, "nccl"), (2, "gloo")):
         env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()), WORLD_SIZE=str(world),
@@ -2490,9 +2613,15 @@ def phase_sharded(ctx):
                 raise AssertionError(f"phase 15 world {world} ({backend}) failed ({p.returncode}): {err[-6000:]}")
         emit({"phase": "sharded", "check": "seconds", "run": f"world {world} ({backend})",
               "seconds": time.perf_counter() - t0, "nvidia_smi": ctx["smi"]})
-    if total["fused_stems"] != 3 * 2:  # one K1 a rank an image: worlds 1 and 2, two dtypes
-        raise AssertionError(f"phase 15 launched K1 {total['fused_stems']} times, want 6")
+    spatial_runs = (2 + len(SHARDED_RUNS)) * (1 + 2)  # a rank's runs, over a world-1 and two world-2 ranks
+    if total["fused_stems"] != spatial_runs:  # one K1 a rank an image
+        raise AssertionError(f"phase 15 launched K1 {total['fused_stems']} times, want {spatial_runs}")
+    missing = [name for name in CELL_KERNELS if total[name] == 0]
+    if missing:
+        raise AssertionError(f"phase 15 never launched {missing} on its sharded runs ({dict(total)})")
     ctx["sharded_launches"] = dict(total)
+    emit({"phase": "sharded", "check": "seconds", "run": "phase 15", "seconds": time.perf_counter() - t_phase,
+          "nvidia_smi": ctx["smi"]})
 
 
 def phase_kernels(ctx):

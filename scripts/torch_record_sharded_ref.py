@@ -31,6 +31,18 @@ B=5, 19 classes):
   ``RandomState(2000 + t)``).
 
 It takes about a minute on a few cores.
+
+    JAX_PLATFORMS=cpu python scripts/torch_record_sharded_ref.py --mixed \
+        [--out tests/torch_sharded_mixed_ref.npz]
+
+records the same two spatial cases of the ADD built with ``MIXED_GENOTYPE``
+(pools, skip and none: the per-op routes of the flat DAG) instead, under
+``mixed/w2`` and ``mixed/w4``, into a file of its own (the first file's
+arrays stay as they were). Both are the unsharded ``model.apply``: at
+64x65 over 4 devices JAX's ``spatial_shard_forward`` of this model
+disagrees with its own ``model.apply`` (the second exit all NaN), so the
+recording keeps, beside the answer, that program's max |Δ| against it and
+its count of NaNs (``mixed/w4/sharded_max_abs_diff``, ``.../sharded_nans``).
 """
 import argparse
 import hashlib
@@ -54,6 +66,8 @@ import numpy as np  # noqa: E402
 
 PATH, C_INDEX, NCLS, F_, B_ = [1, 2, 2, 2, 3, 2], [1], 19, 2, 5
 SPATIAL = {"w2": (2, (65, 65), 21), "w4": (4, (64, 65), 22)}
+# max_pool+sep3, skip+dil5, avg_pool+dil3, none+sep5, skip+sep3 (chip_smoke.py's)
+MIXED_GENOTYPE = [[0, 1], [1, 4], [2, 3], [3, 7], [5, 2], [8, 6], [11, 0], [13, 5], [18, 3], [19, 4]]
 TP_HW, TP_N, TP_SEED, SKETCH = (17, 17), 4, 23, 8
 
 
@@ -69,14 +83,15 @@ def sha256(*arrays) -> str:
     return hashlib.sha256(b"".join(np.ascontiguousarray(a).tobytes() for a in arrays)).hexdigest()
 
 
-def spatial_inputs(name):
+def spatial_inputs(name, genotype=None):
     """(image, variables) of a spatial case (the test rebuilds them)."""
     from auto_dynamic_deeplab_tpu.models import ADD
     from auto_dynamic_deeplab_tpu.nas import AUTODEEPLAB_GENOTYPE
     from torch_port_helpers import flax_variables
 
     _, hw, seed = SPATIAL[name]
-    v = flax_variables(ADD(PATH, C_INDEX, AUTODEEPLAB_GENOTYPE, NCLS, F=F_, B=B_), jnp.zeros((1, *hw, 3)),
+    genotype = AUTODEEPLAB_GENOTYPE if genotype is None else genotype
+    v = flax_variables(ADD(PATH, C_INDEX, genotype, NCLS, F=F_, B=B_), jnp.zeros((1, *hw, 3)),
                        train=False, seed=seed)
     x = np.random.RandomState(seed).randn(1, *hw, 3).astype(np.float32)
     return x, v
@@ -104,24 +119,35 @@ def put_tree(out, prefix, tree):
     out[f"{prefix}:data"] = np.concatenate([a.astype(np.float32).ravel() for _, a in items])
 
 
-def record_spatial(out):
+def record_spatial(out, prefix="spatial", genotype=None):
     from auto_dynamic_deeplab_tpu.models import ADD
     from auto_dynamic_deeplab_tpu.nas import AUTODEEPLAB_GENOTYPE
     from auto_dynamic_deeplab_tpu.parallel import make_mesh, spatial_shard_forward
 
     for name, (world, hw, _) in SPATIAL.items():
-        x, v = spatial_inputs(name)
-        model = ADD(PATH, C_INDEX, AUTODEEPLAB_GENOTYPE, NCLS, F=F_, B=B_)
+        x, v = spatial_inputs(name, genotype)
+        model = ADD(PATH, C_INDEX, AUTODEEPLAB_GENOTYPE if genotype is None else genotype, NCLS, F=F_, B=B_)
         vj = jax.tree.map(jnp.asarray, v)
-        if hw[0] % world:
+        if hw[0] % world or genotype is not None:
             outs = model.apply(vj, jnp.asarray(x), train=False)
-            out[f"spatial/{name}/program"] = np.asarray("model.apply")
+            out[f"{prefix}/{name}/program"] = np.asarray("model.apply")
+            if not hw[0] % world:
+                mesh = make_mesh(n_data=world, devices=jax.devices()[:world])
+                sharded = [np.asarray(o, np.float64) for o in spatial_shard_forward(model, vj, mesh)(jnp.asarray(x))]
+                diff = [np.nan_to_num(np.abs(a - np.asarray(o, np.float64)), nan=np.inf).max()
+                        for a, o in zip(sharded, outs)]
+                out[f"{prefix}/{name}/sharded_max_abs_diff"] = np.asarray(diff)
+                out[f"{prefix}/{name}/sharded_nans"] = np.asarray([int(np.isnan(a).sum()) for a in sharded])
         else:
             mesh = make_mesh(n_data=world, devices=jax.devices()[:world])
             outs = spatial_shard_forward(model, vj, mesh)(jnp.asarray(x))
-            out[f"spatial/{name}/program"] = np.asarray("spatial_shard_forward")
-        out[f"spatial/{name}/sha256"] = np.asarray(sha256(x, *[a for _, a in leaves(v)]))
-        out[f"spatial/{name}/logits"] = np.stack([np.asarray(o, np.float32) for o in outs])
+            out[f"{prefix}/{name}/program"] = np.asarray("spatial_shard_forward")
+        out[f"{prefix}/{name}/sha256"] = np.asarray(sha256(x, *[a for _, a in leaves(v)]))
+        out[f"{prefix}/{name}/logits"] = np.stack([np.asarray(o, np.float32) for o in outs])
+
+
+def record_mixed(out):
+    record_spatial(out, "mixed", MIXED_GENOTYPE)
 
 
 def record_tp(out):
@@ -157,11 +183,17 @@ def record_tp(out):
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--out", default=os.path.join(_REPO, "tests", "torch_sharded_ref.npz"))
+    p.add_argument("--mixed", action="store_true", help="record the MIXED_GENOTYPE spatial cases")
+    p.add_argument("--out", default=None, help="default: tests/torch_sharded_ref.npz, with --mixed "
+                   "tests/torch_sharded_mixed_ref.npz")
     args = p.parse_args(argv)
+    if args.out is None:
+        name = "torch_sharded_mixed_ref.npz" if args.mixed else "torch_sharded_ref.npz"
+        args.out = os.path.join(_REPO, "tests", name)
     t0 = time.perf_counter()
     out = {}
-    for name, fn in (("spatial", record_spatial), ("tp", record_tp)):
+    parts = (("mixed", record_mixed),) if args.mixed else (("spatial", record_spatial), ("tp", record_tp))
+    for name, fn in parts:
         fn(out)
         print(f"{name}: {time.perf_counter() - t0:.1f} s", flush=True)
     out["meta/jax_version"] = np.asarray(jax.__version__)

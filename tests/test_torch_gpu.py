@@ -452,6 +452,62 @@ def test_k1_runs_on_the_tensor_cores():
     assert all("HMMA" in f for f in found)
 
 
+# (kernel, a block whose route runs it, C, dtype): K3-K6 at the flagship's
+# widths and sizes; K5 takes the per-op sep5 only in fp32 at C=160
+SHARDED_BLOCKS = [
+    (kernel, names, c, dtype) for kernel, names, c in (
+        ("block_stage", ("dil_conv_5x5", "sep_conv_3x3"), 40), ("sep_fused", ("max_pool_3x3", "sep_conv_3x3"), 40),
+        ("dense_stage", ("avg_pool_3x3", "dil_conv_5x5"), 80))
+    for dtype in (torch.float32, torch.bfloat16)
+] + [("sep_stage", ("sep_conv_5x5", "none"), 160, torch.float32)]
+SHARDED_HW = {40: (129, 257), 80: (65, 129), 160: (33, 65)}
+
+
+@needs_gpu
+@pytest.mark.parametrize("kernel,names,c,dtype", SHARDED_BLOCKS, ids=str)
+def test_k3_k6_sharded_windows_match_whole_map_on_gpu(kernel, names, c, dtype):
+    """The flat DAG's block rule on the card: the block's kernel on the
+    window of rows ``band.block_windows`` fetches for bands from row 0,
+    mid-map and the last band, its route's launches each time; the band's
+    rows against the whole map's kernel output (relative max error ≤ 1e-6
+    in fp32, one bf16 rounding in bf16) and against the plain versions on
+    the same window (the K3-K6 bound)."""
+    import copy
+    import sys
+
+    from auto_dynamic_deeplab_torch.ops import band
+
+    sys.path.insert(0, __file__.rsplit("/", 1)[0])
+    from torch_sharded_ranks import WindowBands
+
+    torch.backends.cudnn.allow_tf32 = False
+    route = pt_cell.block_route(names, c, dtype)
+    assert kernel in route
+    rows, w = SHARDED_HW[c]
+    points = (0, rows // 4, rows // 2 + 3, rows)
+    ops = [_op(n, c, 40 + i) for i, n in enumerate(names)]
+    cpu_ops = [copy.deepcopy(op).cpu() for op in ops]
+    xs = [_state(1, c, (rows, w), dtype, seed=50 + i) for i in range(len(names))]
+    fn = getattr(pt_cell, kernel)
+    with torch.inference_mode():
+        whole = _state(1, c, (rows, w), dtype, seed=0)
+        pt_cell._run_block(xs, names, ops, whole)
+        for rank in range(len(points) - 1):
+            bands = WindowBands(rows, points, rank, xs)
+            lo, hi = bands.band(rows)
+            wins, start = band.block_windows([x[:, :, lo:hi] for x in xs], rows, bands, names)
+            assert all(t.is_contiguous(memory_format=torch.channels_last) for t in wins)
+            dst = _state(1, c, (hi - lo, w), dtype, seed=1)
+            before = fn.launches
+            pt_cell._run_block(wins, names, ops, dst, start)
+            torch.cuda.synchronize()
+            assert fn.launches == before + route.count(kernel)
+            plain = torch.empty(1, c, hi - lo, w, dtype=dtype)
+            pt_cell._run_block([t.cpu() for t in wins], names, cpu_ops, plain, start)
+            assert _rel_err(dst, whole[:, :, lo:hi]) <= (1e-6 if dtype == torch.float32 else 1e-2)
+            assert _rel_err(dst, plain) <= _tol(dtype)
+
+
 @needs_gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("genotype", [

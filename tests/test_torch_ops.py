@@ -206,3 +206,10 @@ def test_genotype_copies_equal():
     np.testing.assert_array_equal(
         pt_genotypes.AUTODEEPLAB_GENOTYPE, jx_genotypes.AUTODEEPLAB_GENOTYPE
     )
+
+
+def test_genotype_record_matches_jax():
+    """``nas.Genotype``: the JAX package's NamedTuple, field for field."""
+    assert pt_genotypes.Genotype._fields == jx_genotypes.Genotype._fields == ("cell", "cell_concat")
+    rows, concat = [[0, 1], [2, 3]], range(2, 7)
+    assert tuple(pt_genotypes.Genotype(rows, concat)) == tuple(jx_genotypes.Genotype(rows, concat))

@@ -158,6 +158,25 @@ def test_loss_matches_jax(case):
         pt_loss.multi_exit_cross_entropy([torch.from_numpy(logits)], torch.from_numpy(target), reduce="max")
 
 
+@pytest.mark.parametrize("weighted", [False, True], ids=["unweighted", "weighted"])
+def test_segmentation_losses_match_jax(weighted):
+    """``SegmentationLosses(weight).build_loss("ce")`` on (N, C, H, W)
+    logits against the JAX package's on the same logits channels last,
+    with ignored pixels (255 and outside [0, C)), |Δ| ≤ 1e-6 relative;
+    another mode raises, as JAX's does."""
+    logits, target, weight = _loss_case()
+    w = weight if weighted else None
+    ref = float(jx_loss.SegmentationLosses(w).build_loss("ce")(jnp.asarray(logits.transpose(0, 2, 3, 1)),
+                                                                 jnp.asarray(target)))
+    crit = pt_loss.SegmentationLosses(w).build_loss("ce")
+    assert crit.ignore_index == 255
+    out = crit(torch.from_numpy(logits), torch.from_numpy(target)).item()
+    assert abs(out - ref) <= 1e-6 * abs(ref), (out, ref)
+    for losses in (pt_loss.SegmentationLosses(w), jx_loss.SegmentationLosses(w)):
+        with pytest.raises(NotImplementedError):
+            losses.build_loss("focal")
+
+
 # ------------------------------------------------------------- schedules
 
 

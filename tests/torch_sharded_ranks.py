@@ -11,7 +11,9 @@ the inputs; this rank ``torch.save``s what it got to OUT, whose
 
 - ``spatial``: ``spatial_shard_forward`` over the whole group: this rank's
   rows of each exit's logits, the logits gathered whole, the bytes it
-  received and its band of the input;
+  received and its band of the input; then, for each model of SPEC's
+  ``executions`` (label -> genotype, model flags, state), its rows, the
+  bytes and the gathered logits;
 - ``tp``: ``shard_train_state`` over ``make_mesh(2, 2)``, the round trip
   of ``gather_train_state`` before the step, one ``make_tp_train_step``
   step on the global batch, the whole state after it, the count of
@@ -49,7 +51,9 @@ class WindowBands:
     """Rank ``rank`` of a row split at input rows ``points`` (p_0 = 0, the
     last = ``height``; a tensor of h rows splits at p·h // height, as
     ``row_bounds`` does), in one process: ``fetch`` cuts the rows it is
-    asked for out of ``whole`` (the whole tensor), ``fill`` outside it."""
+    asked for out of ``whole`` (the whole tensor; or a list of them, of
+    which the one that holds the band asked about), ``fill`` outside it,
+    channels_last where the whole tensor is, as ``RowBands.fetch``."""
 
     def __init__(self, height, points, rank, whole):
         self.height, self.points, self.rank, self.whole = height, points, rank, whole
@@ -65,17 +69,23 @@ class WindowBands:
 
     def fetch(self, x, rows, dim, window, fill):
         lo, hi = window(self.rank)
-        shape = list(self.whole.shape)
+        whole = self.whole
+        if isinstance(whole, (list, tuple)):
+            whole = next(w for w in whole if w.untyped_storage().data_ptr() == x.untyped_storage().data_ptr())
+        last = dim == 2 and whole.dim() == 4 and whole.shape[1] > 1 and whole.stride(1) == 1
+        if last:
+            whole, dim = whole.permute(0, 2, 3, 1), 1
+        shape = list(whole.shape)
         shape[dim] = hi - lo
-        out = self.whole.new_full(shape, fill)
+        out = whole.new_full(shape, fill)
         a, b = max(lo, 0), min(hi, rows)
         if a < b:
-            out.narrow(dim, a - lo, b - a).copy_(self.whole.narrow(dim, a, b - a))
-        return out
+            out.narrow(dim, a - lo, b - a).copy_(whole.narrow(dim, a, b - a))
+        return out.permute(0, 3, 1, 2) if last else out
 
 
-def _model(ncls, **kw):
-    return models.ADD(PATH, C_INDEX, AUTODEEPLAB_GENOTYPE, ncls, F=2, B=5, **kw)
+def _model(ncls, genotype=AUTODEEPLAB_GENOTYPE, **kw):
+    return models.ADD(PATH, C_INDEX, genotype, ncls, F=2, B=5, **kw)
 
 
 def run_spatial(spec):
@@ -87,8 +97,17 @@ def run_spatial(spec):
     height = x.shape[1]
     outs = fwd(x)
     lo, hi = fwd.bands(height).band(height)
-    return {"rank": mesh.rank, "band": (lo, hi), "rows": outs, "bytes": fwd.exchanged_bytes,
-            "whole": fwd.gather(outs, height), "band_input_rows": fwd(x[:, lo:hi], height=height)}
+    out = {"rank": mesh.rank, "band": (lo, hi), "rows": outs, "bytes": fwd.exchanged_bytes,
+           "whole": fwd.gather(outs, height), "band_input_rows": fwd(x[:, lo:hi], height=height),
+           "executions": {}}
+    # the other cell executions (and genotypes), each a model of its own
+    for label, (genotype, flags, state) in spec.get("executions", {}).items():
+        model = _model(19, genotype, **flags)
+        model.load_state_dict(state)
+        fwd = spatial_shard_forward(model, mesh)
+        outs = fwd(x)
+        out["executions"][label] = {"rows": outs, "bytes": fwd.exchanged_bytes, "whole": fwd.gather(outs, height)}
+    return out
 
 
 def run_tp(spec):
