@@ -4,7 +4,8 @@ confidence, in the single-program mode as the JAX CLI runs it (on the
 card, one CUDA graph a segment, replayed). Weights come from --seed, or
 from the stage-2 experiment directory --resume (its ``checkpoint``) and
 the stage-3 one --edm-resume (its ``edm``), as cli.train and
-cli.train_edm write them.
+cli.train_edm write them, or as the JAX package's write them (orbax
+directories, read by utils/orbax_reader.py and carried over by the bridge).
 
     python -m auto_dynamic_deeplab_torch.cli.evaluate --dynamic \\
         --confidence entropy --threshold 0.5 --synthetic-crop 1025 2049 \\
@@ -26,7 +27,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 
 import torch
 
@@ -37,7 +37,8 @@ from ..runtime import resolve_device
 from ..train.evaluator import Evaluation
 from ..utils.flops import model_complexity
 from ..utils.initialize import init_params
-from ..utils.saver import restore_checkpoint
+from ..bridge import load_checkpoint_weights
+from ..utils.saver import checkpoint_path, restore_checkpoint
 from .common import add_common_args, resolve_arch
 
 
@@ -48,8 +49,10 @@ def build_parser():
     p.add_argument("--dynamic", action="store_true")
     p.add_argument("--confidence", default="edm", choices=["edm", "entropy", "max"])
     p.add_argument("--threshold", type=float, default=0.0)
-    p.add_argument("--resume", default=None, help="stage-2 experiment dir")
-    p.add_argument("--edm-resume", default=None, help="stage-3 experiment dir")
+    p.add_argument("--resume", default=None,
+                   help="stage-2 experiment dir (or its checkpoint), of the port or of the JAX package")
+    p.add_argument("--edm-resume", default=None,
+                   help="stage-3 experiment dir (or its edm), of the port or of the JAX package")
     p.add_argument("--genotype", default=None)
     p.add_argument("--flops", action="store_true",
                    help="add complexity: flops, params and bytes of one forward")
@@ -98,14 +101,14 @@ def build(args):
                       low_level_layer=low_level_layer, **CELL_EXEC[args.cell_exec])
     init_params(model, torch.Generator().manual_seed(args.seed))
     if args.resume:
-        model.load_state_dict(restore_checkpoint(os.path.join(args.resume, "checkpoint"))[0]["model"])
+        load_checkpoint_weights(model, restore_checkpoint(checkpoint_path(args.resume))[0])
 
     edm = None
     if args.confidence == "edm" and args.dynamic:
         edm = EDM(model.feature_channels(model.exit_layers[0]))
         init_params(edm, torch.Generator().manual_seed(0))
         if args.edm_resume:
-            edm.load_state_dict(restore_checkpoint(os.path.join(args.edm_resume, "edm"))[0]["model"])
+            load_checkpoint_weights(edm, restore_checkpoint(checkpoint_path(args.edm_resume, "edm"))[0])
 
     return Evaluation(model, nclass, edm=edm, device=device), val_loader
 

@@ -6,7 +6,8 @@ train_edm.py), on the GPU by default, the CPU with --device cpu.
         --resume run/synthetic/ADD_C2_F20/experiment_0 \\
         --synthetic-crop 1025 2049 --synthetic-length 8
 
---resume is the stage-2 experiment directory (its ``checkpoint``); the
+--resume is the stage-2 experiment directory (its ``checkpoint``), of
+the port or of the JAX package (an orbax directory); the
 EDM goes to {--run-dir}/{--dataset}/{--checkname or edm_C<C>}/
 experiment_N/edm, with the feature and entropy caches beside it.
 """
@@ -14,7 +15,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 
 import torch
 
@@ -23,7 +23,8 @@ from ..models import ADD
 from ..runtime import resolve_device
 from ..train.edm_trainer import make_edm_dataset, train_edm
 from ..utils.initialize import init_params
-from ..utils.saver import Saver, restore_checkpoint
+from ..bridge import load_checkpoint_weights
+from ..utils.saver import Saver, checkpoint_path, restore_checkpoint
 from .common import add_common_args, resolve_arch
 
 
@@ -33,7 +34,7 @@ def build_parser():
     p.add_argument("--epochs", type=int, default=20)
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--edm-batch-size", type=int, default=16)
-    p.add_argument("--resume", default=None, help="experiment dir containing the stage-2 checkpoint")
+    p.add_argument("--resume", default=None, help="experiment dir containing the stage-2 checkpoint (the port's or the JAX package's)")
     p.add_argument("--genotype", default=None)
     p.add_argument("--max-items", type=int, default=0)
     return p
@@ -54,8 +55,7 @@ def main(argv=None):
     model = ADD(path, C_index, genotype, nclass, F=args.F, B=args.B, low_level_layer=low_level_layer)
     init_params(model, torch.Generator().manual_seed(args.seed))
     if args.resume:
-        state, _ = restore_checkpoint(os.path.join(args.resume, "checkpoint"))
-        model.load_state_dict(state["model"])
+        load_checkpoint_weights(model, restore_checkpoint(checkpoint_path(args.resume))[0])
 
     saver = Saver(args.run_dir, args.dataset, args.checkname or f"edm_C{args.C}")
     features, entropies = make_edm_dataset(

@@ -17,7 +17,10 @@ graph small. The port has the per-edge form alone (``mixed_{e}``);
 Submodules carry the flax names (``preprocess_down`` / ``_same`` / ``_up``,
 ``pre_preprocess``, ``mixed_{e}`` with ``ops_{i}`` and ``pool_bn_{i}``, or
 ``ops_{k}`` for a fixed cell), so the weight bridge maps them one to one.
-Tensors are NCHW.
+A fixed cell holds only the ops its B blocks call (the genotype's rows on
+edges below ``num_edges(B)``): flax creates a submodule's parameters when
+it is first called, so a JAX supernet with fewer blocks than the genotype
+has rows holds no others. Tensors are NCHW.
 """
 from __future__ import annotations
 
@@ -133,7 +136,7 @@ class TrellisCell(nn.Module):
         elif cell_kind == "fixed":
             if genotype is None:
                 raise ValueError("a fixed cell needs a genotype")
-            assignment = edge_op_assignment(as_genotype_rows(genotype))
+            assignment = [(e, op) for e, op in edge_op_assignment(as_genotype_rows(genotype)) if e < num_edges(B)]
             self.selected = dict(assignment)
             self.ops = [OPS[PRIMITIVES[op]](C_out, 1, **kw) for _, op in assignment]
             for k, op in enumerate(self.ops):

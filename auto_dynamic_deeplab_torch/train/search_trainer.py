@@ -24,7 +24,6 @@ rank validates the whole validation set.
 from __future__ import annotations
 
 import dataclasses
-import os
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -34,7 +33,7 @@ from ..nas.decode import genotype_decode, viterbi_decode
 from ..parallel.mesh import DataMesh, replicate, shard_batch
 from ..runtime import resolve_device
 from ..utils.metrics import Evaluator
-from ..utils.saver import find_latest_checkpoint, restore_checkpoint
+from ..utils.saver import checkpoint_path, find_latest_checkpoint, restore_checkpoint
 from .schedules import lr_schedule
 from .step import SearchSteps, make_arch_optimizer, make_optimizer
 from .trainer import _shared_experiment_dir, _StepClock, _writers
@@ -118,14 +117,15 @@ class SearchTrainer:
 
     def _resume(self, resume: str):
         """Restore the weights, BN statistics, arch, both optimizers, the
-        epoch and best_pred from a committed checkpoint."""
+        epoch and best_pred from a committed checkpoint, the port's or the
+        JAX package's."""
         path = resume
         if resume == "auto":
             path = find_latest_checkpoint(self.config.run_dir, self.config.dataset, self.config.checkname)
             if path is None:
                 return  # cold start: nothing committed yet
-        elif os.path.isdir(path):
-            path = os.path.join(path, "checkpoint")
+        else:
+            path = checkpoint_path(path)
         state, meta = restore_checkpoint(path, map_location=self.device)
         self.steps.load_state_dict(state)
         self.start_epoch = int(meta.get("epoch", -1)) + 1

@@ -24,11 +24,13 @@ parameter sets of one model, and DDP's reducer is fixed at construction.
 """
 from __future__ import annotations
 
+import warnings
 from typing import Iterable, List, Optional
 
 import numpy as np
 import torch
 
+from ..bridge import is_jax_tree, load_checkpoint_weights, load_jax_optimizer_state
 from ..parallel.mesh import DataMesh
 from .loss import multi_exit_cross_entropy
 from .schedules import Schedule
@@ -116,9 +118,15 @@ class TrainStep:
     def load_state_dict(self, state: dict, weights_only: bool = False):
         """Restore the model's parameters and BN statistics and, unless
         ``weights_only`` (fine-tuning: the schedule restarts), the optimizer
-        and the step."""
-        self.model.load_state_dict(state["model"])
-        if not weights_only:
+        and the step, from the port's state or from the JAX package's
+        train state (``params``, ``batch_stats``, ``opt_state``, ``step``,
+        through the bridge)."""
+        load_checkpoint_weights(self.model, state)
+        if is_jax_tree(state):
+            if not weights_only:
+                load_jax_optimizer_state(self.optimizer, self.model, state["opt_state"])
+                self.step = int(np.asarray(state["step"]))
+        elif not weights_only:
             self.optimizer.load_state_dict(state["optimizer"])
             self.step = int(state["step"])
 
@@ -137,11 +145,10 @@ class SearchSteps:
     Each step differentiates its own parameters only: the others have
     ``requires_grad`` off for its forward and backward, so no gradient is
     computed for them and their optimizer never sees one; a parameter of
-    the step that the loss does not reach (an op of a genotype row past the
-    cell's B blocks) gets a zero gradient, as under jax.grad, so that the
-    decay still reaches it. ``step`` counts the weight updates from 0. Each
-    step returns its loss as a 0-d device tensor, so a loop of steps reads
-    nothing back."""
+    the step that the loss does not reach gets a zero gradient, as under
+    jax.grad, so that the decay still reaches it. ``step`` counts the
+    weight updates from 0. Each step returns its loss as a 0-d device
+    tensor, so a loop of steps reads nothing back."""
 
     def __init__(
         self,
@@ -202,8 +209,24 @@ class SearchSteps:
 
     def load_state_dict(self, state: dict):
         """Restore the weights, BN statistics and arch, both optimizers'
-        states and the step."""
-        self.model.load_state_dict(state["model"])
+        states and the step, from the port's state or from the JAX
+        package's search state (``params``, ``batch_stats``, ``arch``,
+        ``w_opt``, ``a_opt``, through the bridge; the step is ``w_opt``'s
+        schedule count). A JAX state saved without the optimizers leaves
+        them fresh and the step at 0, with a warning, as the JAX package's
+        search trainer does."""
+        load_checkpoint_weights(self.model, state)
+        if is_jax_tree(state):
+            if "w_opt" not in state or "a_opt" not in state:
+                warnings.warn("the search checkpoint holds no optimizer states: momentum and the Adam moments "
+                              "start fresh and the schedule restarts", stacklevel=2)
+                return
+            count = load_jax_optimizer_state(self.w_optimizer, self.model, state["w_opt"])
+            if count is None:
+                raise ValueError("w_opt: no schedule count (the search's weight optimizer runs a schedule)")
+            load_jax_optimizer_state(self.a_optimizer, self.model, state["a_opt"])
+            self.step = count
+            return
         self.w_optimizer.load_state_dict(state["w_opt"])
         self.a_optimizer.load_state_dict(state["a_opt"])
         self.step = int(state["step"])

@@ -23,7 +23,6 @@ weights at capture.
 from __future__ import annotations
 
 import dataclasses
-import os
 import time
 from typing import List, Optional, Tuple
 
@@ -33,7 +32,7 @@ import torch
 from ..parallel.distributed import data_shard
 from ..parallel.mesh import make_data_mesh, replicate, shard_batch
 from ..runtime import resolve_device
-from ..utils.saver import Saver, find_latest_checkpoint, restore_checkpoint
+from ..utils.saver import Saver, checkpoint_path, find_latest_checkpoint, restore_checkpoint
 from ..utils.summaries import TrainingSummary
 from .evaluator import Evaluation
 from .schedules import lr_schedule
@@ -56,8 +55,9 @@ class TrainConfig:
     checkname: str = "add"
     # 'auto': the newest committed checkpoint of this run_dir/dataset/
     # checkname (preemption recovery; a cold start when there is none), or
-    # a checkpoint file or the experiment directory holding one
-    # (the reference's --resume, train.py:184-210)
+    # a checkpoint (a port file or the JAX package's orbax directory) or the
+    # experiment directory holding one (the reference's --resume,
+    # train.py:184-210)
     resume: Optional[str] = None
     # with resume: the weights only, the schedule restarts from epoch 0
     # (the reference's --ft, train.py:212-214)
@@ -154,15 +154,15 @@ class Trainer:
 
     def _resume(self, resume: str, ft: bool = False):
         """Restore the weights, BN statistics, optimizer and step from a
-        committed checkpoint; with ``ft`` only the weights and statistics,
-        and the schedule restarts."""
+        committed checkpoint, the port's or the JAX package's; with ``ft``
+        only the weights and statistics, and the schedule restarts."""
         path = resume
         if resume == "auto":
             path = find_latest_checkpoint(self.config.run_dir, self.config.dataset, self.config.checkname)
             if path is None:
                 return  # cold start: nothing committed yet
-        elif os.path.isdir(path):
-            path = os.path.join(path, "checkpoint")
+        else:
+            path = checkpoint_path(path)
         state, meta = restore_checkpoint(path, map_location=self.device)
         self.train_step.load_state_dict(state, weights_only=ft)
         if not ft:

@@ -5,11 +5,17 @@ The JAX package's run-directory contract: ``run/{dataset}/{checkname}/
 experiment_N`` numbered on, ``checkpoint`` beside ``checkpoint.meta.json``
 (``epoch``, ``best_pred``), ``best_pred.txt`` and ``best_model`` promoted
 when an experiment beats every earlier one's best, and the config in
-``parameters.txt``. A checkpoint is one ``torch.save`` file (here the
-model's state_dict, whose names are the flax paths, the optimizer's state
-and the step), not an orbax directory: the JAX package's checkpoints are
-not read. A checkpoint counts as committed once its ``.meta.json`` exists,
-which is written after the file is in place.
+``parameters.txt``. The port writes a checkpoint as one ``torch.save``
+file (the model's state_dict, whose names are the flax paths, the
+optimizer's state and the step). It reads both that and the JAX package's
+orbax directories (``utils/orbax_reader.py``, without orbax): an orbax
+checkpoint comes back as the JAX tree of numpy arrays (``params``,
+``batch_stats`` and ``opt_state`` and ``step``, or the search's ``arch``,
+``w_opt`` and ``a_opt``, or an EDM's ``params``), which
+``bridge.load_checkpoint_weights``, ``TrainStep.load_state_dict`` and
+``SearchSteps.load_state_dict`` take. A checkpoint of either kind counts
+as committed once its ``.meta.json`` exists, which both packages write
+after the checkpoint is in place.
 """
 from __future__ import annotations
 
@@ -21,6 +27,9 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..bridge import load_checkpoint_weights
+from .orbax_reader import is_orbax_checkpoint, read_orbax_checkpoint
+
 
 def _experiments(directory: str):
     runs = glob.glob(os.path.join(directory, "experiment_*"))
@@ -31,17 +40,32 @@ def find_latest_checkpoint(
     directory_root: str, dataset: str, checkname: str, filename: str = "checkpoint"
 ) -> Optional[str]:
     """The newest experiment's committed ``filename`` under
-    run/{dataset}/{checkname}: the auto-resume (preemption) discovery."""
+    run/{dataset}/{checkname}, a port file or an orbax directory of the JAX
+    package, whichever wrote the newest: the auto-resume (preemption)
+    discovery."""
     for run in reversed(_experiments(os.path.join(directory_root, dataset, checkname))):
         path = os.path.join(run, filename)
-        if os.path.isfile(path) and os.path.exists(path + ".meta.json"):
+        if (os.path.isfile(path) or is_orbax_checkpoint(path)) and os.path.exists(path + ".meta.json"):
             return os.path.abspath(path)
     return None
 
 
+def checkpoint_path(path: str, filename: str = "checkpoint") -> str:
+    """``path`` when it is a checkpoint (a port file or an orbax
+    directory), else the ``filename`` of the experiment directory ``path``."""
+    if os.path.isfile(path) or is_orbax_checkpoint(path) or not os.path.isdir(path):
+        return path
+    return os.path.join(path, filename)
+
+
 def restore_checkpoint(path: str, map_location="cpu") -> Tuple[Any, Dict]:
-    """(state, meta) of a checkpoint file written by ``Saver``."""
-    state = torch.load(path, map_location=map_location, weights_only=True)
+    """(state, meta) of a checkpoint: a file written by ``Saver``, or an
+    orbax directory written by the JAX package's, whose state is the JAX
+    tree of numpy arrays (see the module doc)."""
+    if is_orbax_checkpoint(path):
+        state = read_orbax_checkpoint(path)
+    else:
+        state = torch.load(path, map_location=map_location, weights_only=True)
     meta = {}
     if os.path.exists(path + ".meta.json"):
         with open(path + ".meta.json") as f:
@@ -88,11 +112,11 @@ class Saver:
 
     def load_checkpoint(self, target=None, filename: str = "checkpoint", map_location="cpu"):
         """(state, meta) of this experiment's ``filename``; when ``target``
-        is a module, its weights are loaded from ``state["model"]`` (the
-        JAX package restores into a pytree of the target's structure)."""
+        is a module, its weights are loaded from the state (the JAX package
+        restores into a pytree of the target's structure)."""
         state, meta = restore_checkpoint(os.path.join(self.experiment_dir, filename), map_location)
         if target is not None:
-            target.load_state_dict(state["model"])
+            load_checkpoint_weights(target, state)
         return state, meta
 
     def save_architecture(

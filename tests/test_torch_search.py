@@ -448,23 +448,27 @@ def test_mixed_supernet_search_step_matches_jax(steps, recorded, which, reduce):
 
 
 def test_unreached_parameters_still_decay():
-    """With the shipped B=5 genotype in a B=2 cell (the CLIs' default
-    genotype at --B 2), the ops of rows past the cell's edges get no
-    gradient; as under jax.grad (zeros), the weight step's decay still
-    moves them: p1 = p0 - lr(0) * wd * p0."""
+    """A weight the loss does not reach gets a zero gradient, as under
+    jax.grad, and the weight step's decay still moves it: p1 = p0 - lr(0)
+    * wd * p0. The search cells hold no such weight: with the shipped B=5
+    genotype in a B=2 cell (the CLIs' default genotype at --B 2) a fixed
+    cell builds only the ops its blocks call, as flax creates only those
+    (tests/test_torch_orbax.py), so the weight here is one the model
+    registers and never uses."""
     from auto_dynamic_deeplab_torch.nas import AUTODEEPLAB_GENOTYPE
 
     model = init_params(pt_models.ModelNetSearch(NCLS, AUTODEEPLAB_GENOTYPE, 4, 2, 2, C_index=(2,)),
                         torch.Generator().manual_seed(0))
+    assert not [n for n, _ in model.named_parameters() if ".ops_4." in n]  # ops_0-ops_3 sit on the 5 edges
+    unreached = torch.randn(3, 5, generator=torch.Generator().manual_seed(1))
+    model.register_parameter("unreached", torch.nn.Parameter(unreached))
     sched = pt_lr_schedule("cos", LR, 1, 2, min_lr=0.003)
     st = SearchSteps(model, make_optimizer(model.weight_parameters(), nesterov=False, weight_decay=WD),
                      make_arch_optimizer(model.arch_parameters(), ARCH_LR), sched)
-    unreached = "l3_c2.ops_9.pw2.kernel"  # row [18, 5]'s sep5 on edge 19, past the B=2 cell's 5 edges
-    p0 = dict(model.named_parameters())[unreached].detach().clone()
+    p0 = model.unreached.detach().clone()
     st.weight_step(*(torch.from_numpy(a) for a in _batch()))
-    p = dict(model.named_parameters())[unreached]
-    assert not p.grad.any()
-    torch.testing.assert_close(p.detach(), p0 - sched(0) * WD * p0, rtol=0, atol=1e-7)
+    assert not model.unreached.grad.any()
+    torch.testing.assert_close(model.unreached.detach(), p0 - sched(0) * WD * p0, rtol=0, atol=1e-7)
 
 
 def test_optimizers_are_the_optax_chains():
